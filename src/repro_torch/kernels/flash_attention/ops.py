@@ -1,0 +1,93 @@
+"""Public wrapper: GQA-aware forward flash attention.
+
+q ``(B, Sq, H, hd)``, k/v ``(B, Sk, K, hd)`` with H = K*G, read in place
+(no transposes, K/V never repeated: query head ``h`` reads kv head
+``h // G``); optional ``q_offsets`` ``(B,)`` int32 give each row's first
+query its absolute position. Returns ``(B, Sq, H, hd)``.
+
+A CUDA tensor launches ``csrc/flash_attention.cu`` (or raises); a CPU
+tensor takes the plain version, ``ref.flash_attention_ref``. Every launch
+adds one to ``flash_attention.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+KERNEL = "flash_attention"
+HEAD_DIMS = (32, 64, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_GRID_Y = 65535
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ``flash_attention_launch``'s C signature, in order
+ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(KERNEL)
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ARGTYPES
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(q, k, v, q_offsets) -> None:
+    dev = q.device
+    for name, t in (("k", k), ("v", v), ("q_offsets", q_offsets)):
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, q on {dev}")
+    if q.dtype not in DTYPES:
+        raise TypeError(f"q dtype {q.dtype} not in {tuple(DTYPES)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"k/v dtypes {k.dtype}/{v.dtype} != q {q.dtype}")
+    b, _, h, hd = q.shape
+    if k.dim() != 4 or k.shape[0] != b or k.shape[3] != hd:
+        raise ValueError(f"k {tuple(k.shape)} does not fit q {tuple(q.shape)}")
+    if v.shape != k.shape:
+        raise ValueError(f"v {tuple(v.shape)} != k {tuple(k.shape)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if b * h > MAX_GRID_Y:
+        raise ValueError(f"B*H = {b * h} exceeds the grid's {MAX_GRID_Y}")
+    if q_offsets is not None and (q_offsets.dtype != torch.int32
+                                  or q_offsets.shape != (b,)):
+        raise TypeError("q_offsets must be (B,) int32")
+    for name, t in (("q", q), ("k", k), ("v", v), ("q_offsets", q_offsets)):
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window=None,
+                    q_offsets=None):
+    """q: (B, Sq, H, hd); k,v: (B, Sk, K, hd) with H = K*G. ``q_offsets``:
+    optional (B,) int32 absolute position of each batch row's first query.
+    Returns (B, Sq, H, hd)."""
+    b, sq, h, hd = q.shape
+    kh = k.shape[2]
+    if h % kh:
+        raise ValueError(f"H={h} must be a multiple of K={kh}")
+    if q.device.type != "cuda":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   q_offsets=q_offsets)
+    _check(q, k, v, q_offsets)
+    out = torch.empty_like(q)
+    err = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if q_offsets is None else q_offsets.data_ptr(), out.data_ptr(),
+        b, h, kh, sq, k.shape[1], hd, int(bool(causal)),
+        -1 if window is None else int(window), 1.0 / math.sqrt(hd),
+        DTYPES[q.dtype], q.device.index or 0,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, KERNEL)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,0 +1,54 @@
+"""Parameter conversion: the JAX package's pytree -> the port's tensors,
+and the one dtype cast the server does at load.
+
+``params_from_jax`` takes the JAX params as a tree of numpy arrays (e.g.
+``jax.device_get(params)``; the port itself never imports JAX) and copies
+it leaf by leaf: the same nested keys, the same stacked ``blocks`` leading
+layer axis, the same layouts.
+
+``to_compute_dtype`` casts every weight that the layers cast to the
+compute dtype at each use (projections, biases, MLP, embedding) once, so
+the per-use ``.to(cd)`` becomes a no-op with identical numbers. Norm scales
+are read in fp32 by ``rms_norm`` and keep their dtype.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through fp32
+        return torch.from_numpy(a.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_jax(tree, cfg: ArchConfig, device="cpu"):
+    """The JAX param tree (numpy leaves) as the port's params on ``device``."""
+    del cfg  # the layout is the same for every config the port runs
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, None, device) for k, v in tree.items()}
+    return _tensor(tree, device)
+
+
+def _is_norm(key: str) -> bool:
+    return key.startswith("ln")
+
+
+def to_compute_dtype(params, cfg: ArchConfig, device=None):
+    """Cast every weight used in the compute dtype, once (and move the tree
+    to ``device`` if given); norm scales keep their dtype. Returns a new
+    tree; leaves already in place are shared, not copied."""
+    cd = cfg.dtype("compute")
+
+    def cast(tree):
+        return {k: (cast(v) if isinstance(v, dict)
+                    else v.to(device=device) if _is_norm(k)
+                    else v.to(device=device, dtype=cd))
+                for k, v in tree.items()}
+
+    return cast(params)

@@ -1,0 +1,152 @@
+"""Paged decode: ``models.layers.attention_decode`` generalized to a
+per-request position vector over a page-table-indirected cache.
+
+Port of the JAX package's ``serving/decode.py`` (dense stacks; MoE raises
+until ``models/moe.py`` is ported).
+
+Bitwise contract (pinned in ``tests/test_torch_serving.py``): gathering a
+slot's pages yields exactly the dense ``(B, W, K, hd)`` ring buffer, the
+validity mask is the reference mask evaluated per batch row, and every
+einsum/softmax runs the same shapes in the same order — so on the plain
+arm at full gather width, logits from ``paged_decode_step`` bit-match
+``models.transformer.decode_step`` on the dense cache whenever the per-row
+positions agree. Masked (out-of-range / never-written / scratch-backed)
+cache entries cannot leak: their scores sit at ``-1e30`` so ``exp``
+underflows to exactly ``0.0`` in fp32 before the value product.
+
+Writes are recycle-safe and in place (the JAX version donates the pool
+instead): gather the old page entry, ``where(active, new, old)``, scatter
+back with ``index_put_``. Inactive slots' tables point at the reserved
+scratch page 0, so colliding scatter indices always carry identical
+payloads and the step stays deterministic as requests join and leave.
+
+Attention implementations (``attn_impl``, see ``repro_torch.device``):
+
+- ``"cuda"`` — the in-kernel paged flash-decode
+  (``repro_torch.kernels.paged_attention``): the kernel walks the page
+  table itself, pages are consumed in place with no dense copy, per-row
+  ``pos`` bounds the live page walk, and a ring-aware mask covers sliding
+  windows — no fallback.
+- ``"torch"`` — the masked dense-gather reference. ``gather_pages``
+  narrows the gather to the batch's live high-water page count: the view
+  becomes the FIRST ``gather_pages`` ring slots and the mask its matching
+  columns. ``gather_pages=None`` (or ``= max_pages``) is the full-width
+  bitwise baseline arm.
+- ``"cuda_gather"`` — the flash kernel over the gathered copy
+  (``q_offsets=pos``). It needs a full (non-ring) cache: under a sliding
+  window the ring wraps and slot order no longer equals position order,
+  so this arm falls back to the masked plain path, and the server says so.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import ATTN_IMPLS, check_attn_impl
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention.ref import valid_mask
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import layer, require_dense
+
+__all__ = ["ATTN_IMPLS", "paged_attention_decode", "paged_decode_step"]
+
+
+def _write(pool, pid, in_page, new, act) -> None:
+    """Recycle-safe in-place write of one row per slot: old -> where ->
+    scatter, so inactive slots write back exactly what they read."""
+    old = pool[pid, in_page]
+    pool[pid, in_page] = torch.where(act, new, old)
+
+
+def paged_attention_decode(p, x, k_pages, v_pages, table, pos, active,
+                           cfg: ArchConfig, *, window: Optional[int] = None,
+                           attn_impl: str = "torch",
+                           gather_pages: Optional[int] = None):
+    """One layer's decode over the paged pool.
+
+    x: (B,1,D) hidden; k_pages/v_pages: (P, page, K, hd) this layer's pool
+    (updated in place); table: (B, max_pages) int32 page ids (0 =
+    scratch); pos: (B,) int32 absolute position per slot; active: (B,)
+    bool live-request mask. ``gather_pages`` (plain path only): gather just
+    the first ``gather_pages`` table columns — must cover every live row's
+    pages (the server's bucket ladder guarantees it).
+    Returns (out (B,1,D), (k_pages, v_pages)).
+    """
+    cd = cfg.dtype("compute")
+    B = x.shape[0]
+    _, page, K, hd = k_pages.shape
+    max_pages = table.shape[1]
+    W = max_pages * page
+
+    q, k, v = L._project_qkv(p, x, None, cfg)
+    posb = pos[:, None]                               # (B, 1)
+    q = L.rope(q, posb, cfg.rope_theta)
+    k = L.rope(k, posb, cfg.rope_theta)
+
+    slot = (pos % W if window is not None else pos).long()
+    page_idx = slot // page
+    in_page = slot % page
+    pid = table.long().gather(1, page_idx[:, None])[:, 0]      # (B,)
+
+    act = active[:, None, None]
+    _write(k_pages, pid, in_page, k[:, 0].to(k_pages.dtype), act)
+    _write(v_pages, pid, in_page, v[:, 0].to(v_pages.dtype), act)
+
+    if attn_impl == "cuda":
+        out = pa_ops.paged_attention(q, k_pages, v_pages, table, pos,
+                                     window=window)
+    else:
+        gp = max_pages if gather_pages is None else min(gather_pages,
+                                                        max_pages)
+        tb = (table if gp == max_pages else table[:, :gp]).long()
+        Wb = gp * page
+        ck = k_pages[tb].reshape(B, Wb, K, hd)       # the dense ring view
+        cv = v_pages[tb].reshape(B, Wb, K, hd)
+        if attn_impl == "cuda_gather" and window is None:
+            out = fa_ops.flash_attention(q, ck.to(cd), cv.to(cd),
+                                         causal=True, q_offsets=pos)
+        else:
+            # the mask is the full-ring reference evaluated per row, cut
+            # to the gathered columns (the first Wb ring slots)
+            valid = valid_mask(pos, W, window)[:, :Wb]
+            scores = L._grouped_scores(q, ck.to(cd)).float()
+            scores = scores + torch.where(valid, 0.0,
+                                          -1e30)[:, None, None, None, :]
+            w = torch.softmax(scores, dim=-1).to(cd)
+            out = L._apply_scores(w, cv.to(cd))
+    y = L._out_proj(out, p["wo"].to(cd))
+    return y, (k_pages, v_pages)
+
+
+def paged_decode_step(params, pages, table, tokens, pos, active,
+                      cfg: ArchConfig, *, window: Optional[int] = None,
+                      attn_impl: str = "torch",
+                      gather_pages: Optional[int] = None):
+    """One continuous-batching decode step for dense stacks.
+
+    pages: {"k","v"}: (L, P, page, K, hd), updated in place; table: (B,
+    max_pages) int32 shared by all layers; tokens: (B,1) int; pos: (B,)
+    int32; active: (B,) bool. Returns (logits (B,1,V) fp32, pages).
+    Mirrors ``transformer.decode_step``'s layer loop so the math
+    bit-matches.
+    """
+    if window is None:
+        window = cfg.sliding_window
+    check_attn_impl(attn_impl, tokens.device)
+    require_dense(cfg)
+    x = L.embed(params["embed"], tokens, cfg)
+    for i in range(cfg.num_layers):
+        bp = layer(params["blocks"], i)
+        a, _ = paged_attention_decode(
+            bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+            pages["k"][i], pages["v"][i], table, pos, active, cfg,
+            window=window, attn_impl=attn_impl, gather_pages=gather_pages)
+        x = x + a
+        h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+        x = x + L.mlp_forward(bp["mlp"], h2, cfg)
+    x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits, pages

@@ -1,0 +1,611 @@
+"""Continuous-batching serving loop over the paged KV cache.
+
+Port of the JAX package's ``serving/engine.py``. One decode step at a
+fixed batch width (= slots) serves a changing request population —
+requests are admitted into free slots as they arrive (queue), prefilled,
+decoded one token per step, and retired the step their generation
+completes, returning their pages to the pool. Slot membership is data
+(page tables, position vector, active mask), not shape. The JAX version
+compiles one step per gather width and prefill bucket; the port runs
+eagerly, so ``warmup`` builds the kernels and primes the allocator and
+the math libraries instead, and pool updates happen in place where JAX
+donates the pool.
+
+Arrivals are an ``exec.trace.EventTrace``: ``commit_time`` carries
+arrival times and ``read_version[t] = t``. ``poisson_trace`` draws
+reproducible Poisson arrivals; any saved trace replays the same load.
+
+Time is the port's one clock (``engine.timing.monotonic``), read after
+the device work it times has been waited for. When every slot is empty
+and the next arrival is in the future, the clock skips forward instead of
+sleeping, so queueing delays stay real while a trace benches in compute
+time. Per-request output is independent of batch composition (pinned in
+tests), so admission timing never changes tokens.
+
+Prefill modes:
+- ``"scan"`` (default): the paged decode step looped over prompt
+  positions, bucketed by prompt length — bitwise-identical cache and first
+  token to the sequential reference (``T.prefill``).
+- ``"parallel"``: one ``T.forward`` pass over the whole prompt
+  (``attn_impl="cuda"`` routes it through the flash kernel), KV rows
+  scattered into the slot's pages. Full-window caches only.
+
+Decode cost tracks live context, not pool capacity:
+- ``attn_impl="cuda"`` routes decode (and the scan-prefill inner step)
+  through the in-kernel paged-attention walk — no dense gather at all.
+- the plain path gathers only up to the batch's live high-water page
+  count, bucketed to a power-of-two page ladder (``gather_mode=
+  "bucket"``); ``gather_mode="full"`` pins the full-capacity gather — the
+  bitwise baseline arm.
+- ``attn_impl="cuda_gather"`` (flash over a gathered copy) cannot
+  represent a wrapped ring: under a sliding window it falls back to the
+  plain path, and the server says so — ``warnings.warn`` +
+  ``registry.note``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import check_attn_impl, resolve
+from repro_torch.engine.timing import monotonic, synchronize
+from repro_torch.exec.trace import EventTrace
+from repro_torch.models import transformer as T
+from repro_torch.models.convert import to_compute_dtype
+from repro_torch.obs import spans
+from repro_torch.obs.metrics import MetricRegistry
+from repro_torch.serving.decode import paged_decode_step
+from repro_torch.serving.paged_cache import (PagedCacheSpec, PageAllocator,
+                                             init_pages)
+
+
+# ---------------------------------------------------------------------------
+# Offered load: traces and request sampling
+# ---------------------------------------------------------------------------
+
+def poisson_trace(rate: float, n: int, seed: int = 0) -> EventTrace:
+    """Reproducible Poisson arrivals at ``rate`` req/s as an EventTrace
+    (commit_time = arrival times, staleness 0)."""
+    if rate <= 0:
+        raise ValueError("rate must be positive")
+    rng = np.random.default_rng(seed)
+    arrivals = np.cumsum(rng.exponential(1.0 / rate, size=n))
+    t = np.arange(n, dtype=np.int64)
+    return EventTrace(num_groups=1, group=np.zeros(n, np.int32),
+                      read_version=t, commit_time=arrivals)
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One generation request: prompt tokens + generation budget."""
+    rid: int
+    arrival: float
+    prompt: np.ndarray          # (P,) int32
+    gen: int
+
+
+def sample_requests(trace: EventTrace, cfg: ArchConfig, *,
+                    prompt_range=(8, 32), gen_range=(4, 32),
+                    seed: int = 0) -> List[Request]:
+    """One request per trace event. Prompt tokens and lengths come from an
+    RNG keyed by (seed, rid) alone, so request rid is byte-identical across
+    traces/rates — the solo bit-match tests and the continuous-vs-static
+    bench replay the exact same work."""
+    out = []
+    for rid, arrival in enumerate(np.asarray(trace.commit_time)):
+        rng = np.random.default_rng((seed, rid))
+        plen = int(rng.integers(prompt_range[0], prompt_range[1] + 1))
+        gen = int(rng.integers(gen_range[0], gen_range[1] + 1))
+        prompt = rng.integers(cfg.vocab_size, size=plen).astype(np.int32)
+        out.append(Request(rid=rid, arrival=float(arrival),
+                           prompt=prompt, gen=gen))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Report
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ServeReport:
+    """Per-request accounting for one serving run (times in seconds on the
+    run's virtual clock; latency = finish - arrival)."""
+    mode: str
+    rids: np.ndarray
+    arrivals: np.ndarray
+    queue_waits: np.ndarray
+    latencies: np.ndarray
+    gen_counts: np.ndarray
+    tokens: Dict[int, np.ndarray]
+    makespan: float
+    occupancy_mean: float
+
+    def percentile(self, q: float) -> float:
+        return float(np.percentile(self.latencies, q))
+
+    @property
+    def total_tokens(self) -> int:
+        return int(self.gen_counts.sum())
+
+    @property
+    def throughput(self) -> float:
+        """Generated tokens per second of makespan."""
+        return self.total_tokens / max(self.makespan, 1e-12)
+
+    def goodput(self, slo_s: float) -> float:
+        """Tokens/s counting only requests whose latency met the SLO —
+        the paper's HE x SE product transposed to serving: raw throughput
+        discounted by the fraction of it that was statistically useful
+        (delivered within the latency target)."""
+        ok = self.latencies <= slo_s
+        return float(self.gen_counts[ok].sum()) / max(self.makespan, 1e-12)
+
+
+def _bucket(n: int, cap: Optional[int] = None) -> int:
+    b = 1
+    while b < n:
+        b <<= 1
+    return min(b, cap) if cap is not None else b
+
+
+def random_params(cfg: ArchConfig, seed: int, device) -> dict:
+    """Seeded random params on ``device``, each weight drawn in fp32 and
+    stored in the compute dtype as it is made (the full-width server never
+    holds an fp32 copy of the model)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return T.init_params(gen, cfg, weight_dtype=cfg.dtype("compute"))
+
+
+# ---------------------------------------------------------------------------
+# Continuous-batching server
+# ---------------------------------------------------------------------------
+
+class ContinuousServer:
+    """Slot-recycled continuous batching (module docstring).
+
+    ``params`` (the port's tree, e.g. from ``models.convert``) are moved to
+    ``device`` and cast to the compute dtype once; ``None`` draws seeded
+    random ones there. ``device`` defaults to the card and raises without
+    one; the CPU runs only ``attn_impl="torch"``.
+    """
+
+    def __init__(self, cfg: ArchConfig, params=None, *, slots: int = 8,
+                 page_size: int = 16, max_seq: int = 256,
+                 window: Optional[int] = "config", attn_impl: str = "torch",
+                 prefill_mode: str = "scan", gather_mode: str = "bucket",
+                 seed: int = 0,
+                 registry: Optional[MetricRegistry] = None,
+                 device="cuda"):
+        self.device = resolve(device)
+        if window == "config":
+            window = cfg.sliding_window
+        if prefill_mode not in ("scan", "parallel"):
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        if prefill_mode == "parallel" and window is not None:
+            raise ValueError("parallel prefill needs a full (non-ring) cache")
+        check_attn_impl(attn_impl, self.device)
+        if gather_mode not in ("bucket", "full"):
+            raise ValueError(f"unknown gather_mode {gather_mode!r}")
+        T.require_dense(cfg)
+        self.cfg = cfg
+        self.window = window
+        self.attn_impl = attn_impl
+        self.prefill_mode = prefill_mode
+        self.gather_mode = gather_mode
+        if params is None:
+            params = random_params(cfg, seed, self.device)
+        self.params = to_compute_dtype(params, cfg, device=self.device)
+        self.spec = PagedCacheSpec.for_config(
+            cfg, num_slots=slots, page_size=page_size, max_seq=max_seq,
+            window=window)
+        self.alloc = PageAllocator(self.spec)
+        self.pages = init_pages(self.spec, self.device)
+        self.registry = registry if registry is not None else MetricRegistry()
+
+        # the one remaining impl fallback, made loud: flash-over-a-copy
+        # cannot express a wrapped ring, so sliding windows run the plain
+        # masked path — warn once and pin it in the metric stream's notes
+        self._fallback_note: Optional[str] = None
+        if attn_impl == "cuda_gather" and window is not None:
+            self._fallback_note = (
+                "attn_impl='cuda_gather' cannot run a sliding-window "
+                f"(window={window}) ring cache: slot order != position "
+                "order after wrap breaks the flash kernel's positional "
+                "mask; decode falls back to the masked plain path "
+                "(attn_impl='cuda' walks the page table in-kernel and "
+                "has no such fallback)")
+            warnings.warn(self._fallback_note, stacklevel=2)
+            self.registry.note(self._fallback_note)
+
+    # -- device operands -------------------------------------------------
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        """A host array as a fresh device tensor (a copy: the allocator
+        keeps mutating its tables)."""
+        return torch.tensor(a, device=self.device)
+
+    # -- the two compiled-step counterparts --------------------------------
+
+    def _step(self, table, tokens, pos, active,
+              gather_pages: Optional[int]) -> torch.Tensor:
+        """One decode step over every slot; returns (S,) int32 argmax."""
+        logits, self.pages = paged_decode_step(
+            self.params, self.pages, table, tokens, pos, active, self.cfg,
+            window=self.window, attn_impl=self.attn_impl,
+            gather_pages=gather_pages)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    def _scan_prefill(self, table, prompts, plens, admit,
+                      gather_pages: Optional[int]) -> torch.Tensor:
+        S, Pb = prompts.shape
+        toks = []
+        for t in range(Pb):
+            act = admit & (t < plens)
+            pos = torch.full((S,), t, dtype=torch.int32, device=self.device)
+            toks.append(self._step(table, prompts[:, t:t + 1], pos, act,
+                                   gather_pages))
+        return torch.stack(toks)                       # (Pb, S)
+
+    def _parallel_prefill(self, table, prompts, plens, admit,
+                          gather_pages: Optional[int]) -> torch.Tensor:
+        del gather_pages                               # no gather here
+        B, Pb = prompts.shape
+        page = self.spec.page_size
+        logits, _, cache = T.forward(self.params, {"tokens": prompts},
+                                     self.cfg, return_cache=True,
+                                     attn_impl=self.attn_impl,
+                                     window=self.window)
+        tpos = torch.arange(Pb, device=self.device)[None, :]     # (1, Pb)
+        act = admit[:, None] & (tpos < plens[:, None])           # (B, Pb)
+        pid = table.long().gather(1, (tpos // page).expand(B, Pb))
+        inpg = (tpos % page).expand(B, Pb)
+        actx = act[None, :, :, None, None]
+        for name in ("k", "v"):
+            pool = self.pages[name]                               # (L,P,pg,K,hd)
+            rows = cache["blocks"][name].to(pool.dtype)           # (L,B,Pb,K,hd)
+            old = pool[:, pid, inpg]
+            pool[:, pid, inpg] = torch.where(actx, rows, old)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)      # (B, Pb)
+        return toks.T                                            # (Pb, B)
+
+    def _prefill(self, *args, gather_pages: Optional[int]):
+        fn = (self._scan_prefill if self.prefill_mode == "scan"
+              else self._parallel_prefill)
+        return fn(*args, gather_pages=gather_pages)
+
+    def reset(self, registry: Optional[MetricRegistry] = None) -> None:
+        """Fresh pool/allocator (and optionally a fresh metric registry),
+        so a measured run can follow a warmup run."""
+        self.alloc = PageAllocator(self.spec)
+        self.pages = init_pages(self.spec, self.device)
+        if registry is not None:
+            self.registry = registry
+            if self._fallback_note is not None:
+                self.registry.note(self._fallback_note)
+
+    def _uses_gather(self) -> bool:
+        """Does the decode step materialize a dense gathered view at all?
+        ``"cuda"`` walks the table in-kernel; everything else gathers."""
+        return self.attn_impl != "cuda"
+
+    def _gather_bucket(self, slot_pos: np.ndarray,
+                       active: np.ndarray) -> Optional[int]:
+        """The batch's live high-water page count, rounded up the
+        power-of-two ladder. Active rows only: retired slots keep stale
+        positions that must not widen (or overrun) the gather. None means
+        full width — cuda (no gather), ``gather_mode="full"``, or a batch
+        already at capacity."""
+        if self.gather_mode == "full" or not self._uses_gather():
+            return None
+        if not active.any():
+            return None
+        live = min(int(slot_pos[active].max()) + 1, self.spec.seq_capacity)
+        gp = _bucket(-(-live // self.spec.page_size), self.spec.pages_per_slot)
+        return None if gp >= self.spec.pages_per_slot else gp
+
+    def _prefill_gather(self, Pb: int) -> Optional[int]:
+        """Gather width for a scan prefill over a ``Pb``-bucket prompt:
+        positions stay < Pb, and non-admitted rows' outputs are discarded,
+        so the view only needs the prompt's own pages."""
+        if self.gather_mode == "full" or not self._uses_gather():
+            return None
+        live = min(Pb, self.spec.seq_capacity)
+        gp = _bucket(-(-live // self.spec.page_size), self.spec.pages_per_slot)
+        return None if gp >= self.spec.pages_per_slot else gp
+
+    def _gather_ladder(self) -> List[Optional[int]]:
+        """Every gather width a run can request: the full-capacity arm
+        plus (in bucket mode) each power-of-two rung below capacity."""
+        ladder: List[Optional[int]] = [None]
+        if self.gather_mode == "bucket" and self._uses_gather():
+            gp = 1
+            while gp < self.spec.pages_per_slot:
+                ladder.append(gp)
+                gp <<= 1
+        return ladder
+
+    def warmup(self, prompt_lens: Sequence[int] = ()) -> None:
+        """Run the decode step at every gather width and the prefill at
+        every bucket of the given prompt lengths without touching any
+        state (an all-inactive call writes back exactly what it reads):
+        builds the kernels and primes the allocator and math libraries."""
+        S = self.spec.num_slots
+        table = self._dev(self.alloc.tables)
+        off = torch.zeros((S,), dtype=torch.int32, device=self.device)
+        inact = torch.zeros((S,), dtype=torch.bool, device=self.device)
+        for gp in self._gather_ladder():
+            self._step(table, torch.zeros((S, 1), dtype=torch.int32,
+                                          device=self.device),
+                       off, inact, gp).cpu()
+        cap = self.spec.seq_capacity if self.window is None else None
+        for p in sorted({_bucket(int(p), cap) for p in prompt_lens}):
+            self._prefill(table, torch.zeros((S, p), dtype=torch.int32,
+                                             device=self.device),
+                          off, inact, gather_pages=self._prefill_gather(p)
+                          ).cpu()
+
+    def run(self, requests: Sequence[Request]) -> ServeReport:
+        """Serve every request; returns per-request accounting."""
+        spec, alloc = self.spec, self.alloc
+        S = spec.num_slots
+        cap = spec.seq_capacity
+        reg = self.registry
+        queue_wait = reg.series("serving.queue_wait_s")
+        prefill_s = reg.series("serving.prefill_s")
+        decode_s = reg.series("serving.decode_s")
+        step_s = reg.series("serving.decode_step_s")
+        latency_s = reg.series("serving.latency_s")
+        occupancy = reg.series("serving.occupancy")
+        occ_gauge = reg.gauge("serving.batch_occupancy")
+        pages_gauge = reg.gauge("serving.pages_in_use")
+        done_ctr = reg.counter("serving.requests_completed")
+        tok_ctr = reg.counter("serving.tokens_generated")
+
+        reqs = sorted(requests, key=lambda r: r.arrival)
+        if self.window is None:
+            for r in reqs:
+                if len(r.prompt) + r.gen > cap:
+                    raise ValueError(
+                        f"request {r.rid}: prompt {len(r.prompt)} + gen "
+                        f"{r.gen} exceeds cache capacity {cap}")
+
+        slot_req: List[Optional[Request]] = [None] * S
+        slot_pos = np.zeros(S, np.int32)       # next decode position
+        slot_tok = np.zeros(S, np.int32)       # next input token
+        slot_left = np.zeros(S, np.int64)      # decode steps remaining
+        slot_pf_end = np.zeros(S, np.float64)  # prefill end (virtual clock)
+        out_tokens: Dict[int, List[int]] = {}
+        finished: Dict[int, dict] = {}
+
+        t0 = monotonic()
+        voff = 0.0
+        now = lambda: monotonic() - t0 + voff
+        qi = 0
+        n_active = 0
+        steps = 0
+        occ_samples: List[int] = []
+
+        def retire(s: int, tnow: float) -> None:
+            nonlocal n_active
+            r = slot_req[s]
+            lat = tnow - r.arrival
+            finished[r.rid] = {
+                "arrival": r.arrival, "latency": lat,
+                "queue_wait": finished[r.rid]["queue_wait"],
+                "gen": len(out_tokens[r.rid])}
+            latency_s.append(lat, step=r.rid)
+            decode_s.append(tnow - slot_pf_end[s], step=r.rid)
+            done_ctr.inc()
+            alloc.release(s)
+            slot_req[s] = None
+            n_active -= 1
+
+        while qi < len(reqs) or n_active:
+            tnow = now()
+            if (n_active == 0 and qi < len(reqs)
+                    and reqs[qi].arrival > tnow):
+                voff += reqs[qi].arrival - tnow    # idle: skip, don't sleep
+                tnow = now()
+
+            # -- admission: fill free slots from the arrived queue --------
+            admits: List[int] = []
+            for s in range(S):
+                if qi >= len(reqs) or slot_req[s] is not None:
+                    continue
+                r = reqs[qi]
+                need = min(len(r.prompt), cap)
+                if r.arrival > tnow or not alloc.can_fit(need):
+                    if (n_active == 0 and not admits
+                            and r.arrival <= tnow):
+                        raise RuntimeError(
+                            f"request {r.rid} cannot fit an empty pool")
+                    break
+                alloc.ensure(s, need)
+                slot_req[s] = r
+                slot_pos[s] = 0
+                slot_left[s] = r.gen
+                out_tokens[r.rid] = []
+                finished[r.rid] = {"queue_wait": tnow - r.arrival}
+                queue_wait.append(tnow - r.arrival, step=r.rid)
+                admits.append(s)
+                qi += 1
+                n_active += 1
+
+            # -- prefill the admitted slots (one bucketed call) -----------
+            if admits:
+                plens = np.array([len(slot_req[s].prompt) if slot_req[s]
+                                  else 0 for s in range(S)], np.int32)
+                pmax = max(len(slot_req[s].prompt) for s in admits)
+                Pb = _bucket(pmax, cap if self.window is None else None)
+                prompts = np.zeros((S, Pb), np.int32)
+                admit = np.zeros(S, bool)
+                for s in admits:
+                    r = slot_req[s]
+                    prompts[s, :len(r.prompt)] = r.prompt[:Pb]
+                    admit[s] = True
+                tpf = now()
+                with spans.span("serve.prefill", lanes=len(admits),
+                                bucket=Pb):
+                    toks = self._prefill(
+                        self._dev(alloc.tables), self._dev(prompts),
+                        self._dev(plens), self._dev(admit),
+                        gather_pages=self._prefill_gather(Pb))
+                    toks = toks.cpu().numpy()      # (Pb, S); sync
+                tnow = now()
+                for s in admits:
+                    r = slot_req[s]
+                    prefill_s.append(tnow - tpf, step=r.rid)
+                    slot_pf_end[s] = tnow
+                    first = int(toks[len(r.prompt) - 1, s])
+                    out_tokens[r.rid].append(first)
+                    tok_ctr.inc()
+                    slot_tok[s] = first
+                    slot_pos[s] = len(r.prompt)
+                    slot_left[s] = r.gen - 1
+                    if slot_left[s] == 0:
+                        retire(s, tnow)
+
+            if n_active == 0:
+                continue
+
+            # -- one continuous decode step over every live slot ----------
+            active = np.array([r is not None for r in slot_req])
+            for s in np.nonzero(active)[0]:
+                alloc.ensure(int(s), int(slot_pos[s]) + 1)
+            occ_samples.append(int(active.sum()))
+            occupancy.append(int(active.sum()), step=steps)
+            occ_gauge.set(int(active.sum()))
+            pages_gauge.set(alloc.pages_in_use)
+            gp = self._gather_bucket(slot_pos, active)
+            tstep = now()
+            with spans.span("serve.decode_step", occupancy=int(active.sum()),
+                            gather=(gp if gp is not None
+                                    else spec.pages_per_slot)):
+                tok = self._step(self._dev(alloc.tables),
+                                 self._dev(slot_tok[:, None]),
+                                 self._dev(slot_pos), self._dev(active), gp)
+                tok = tok.cpu().numpy()            # sync
+            tnow = now()
+            step_s.append(tnow - tstep, step=steps)
+            steps += 1
+            for s in np.nonzero(active)[0]:
+                r = slot_req[s]
+                out_tokens[r.rid].append(int(tok[s]))
+                tok_ctr.inc()
+                slot_tok[s] = int(tok[s])
+                slot_pos[s] += 1
+                slot_left[s] -= 1
+                if slot_left[s] == 0:
+                    retire(int(s), tnow)
+
+        rids = np.array(sorted(finished), np.int64)
+        occ = np.array(occ_samples) if occ_samples else np.zeros(1)
+        return ServeReport(
+            mode="continuous",
+            rids=rids,
+            arrivals=np.array([finished[r]["arrival"] for r in rids]),
+            queue_waits=np.array([finished[r]["queue_wait"] for r in rids]),
+            latencies=np.array([finished[r]["latency"] for r in rids]),
+            gen_counts=np.array([finished[r]["gen"] for r in rids]),
+            tokens={r: np.array(out_tokens[r], np.int32) for r in rids},
+            makespan=now(),
+            occupancy_mean=float(occ.mean()))
+
+
+# ---------------------------------------------------------------------------
+# Static-batch baseline on the same trace
+# ---------------------------------------------------------------------------
+
+def static_serve_trace(cfg: ArchConfig, requests: Sequence[Request], *,
+                       batch: int = 8, params=None, seed: int = 0,
+                       window: Optional[int] = "config",
+                       registry: Optional[MetricRegistry] = None,
+                       device="cuda") -> ServeReport:
+    """The pre-continuous ``serve()`` flow run against a trace: requests
+    are chunked into arrival-order batches; each batch waits for its last
+    member, prefills padded prompts, then decodes to the *longest*
+    generation in the batch — no slot recycles early, every member's
+    latency is the batch's end. The baseline the continuous server's
+    goodput is compared against."""
+    dev = resolve(device)
+    T.require_dense(cfg)
+    if window == "config":
+        window = cfg.sliding_window
+    if params is None:
+        params = random_params(cfg, seed, dev)
+    params = to_compute_dtype(params, cfg, device=dev)
+    reg = registry if registry is not None else MetricRegistry()
+    prefill_s = reg.series("serving.prefill_s")
+    step_s = reg.series("serving.decode_step_s")
+    latency_s = reg.series("serving.latency_s")
+
+    reqs = sorted(requests, key=lambda r: r.arrival)
+    groups = [reqs[i:i + batch] for i in range(0, len(reqs), batch)]
+
+    finished: Dict[int, dict] = {}
+    tokens: Dict[int, np.ndarray] = {}
+    t0 = monotonic()
+    voff = 0.0
+    now = lambda: monotonic() - t0 + voff
+    occ_num = 0.0
+    occ_time = 0.0
+
+    for grp in groups:
+        last_arrival = max(r.arrival for r in grp)
+        tnow = now()
+        if last_arrival > tnow:                    # wait to fill the batch
+            voff += last_arrival - tnow
+            tnow = now()
+        start = tnow
+        pmax = _bucket(max(len(r.prompt) for r in grp))
+        gmax = max(r.gen for r in grp)
+        prompts = np.zeros((batch, pmax), np.int32)
+        for i in range(batch):
+            r = grp[min(i, len(grp) - 1)]          # pad lanes: repeat last
+            prompts[i, :len(r.prompt)] = r.prompt
+        total_cap = pmax + _bucket(gmax)
+        cache = T.init_cache(cfg, batch, total_cap, window, device=dev)
+        tpf = now()
+        logits, cache = T.prefill(params, cache,
+                                  torch.tensor(prompts, device=dev), cfg,
+                                  window)
+        synchronize()
+        prefill_s.append(now() - tpf)
+        tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
+        outs = [tok.cpu().numpy()[:, 0]]
+        for t in range(pmax, pmax + gmax - 1):
+            ts = now()
+            logits, cache = T.decode_step(params, cache, tok, t, cfg, window)
+            tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+            tok = tok.to(torch.int32)
+            outs.append(tok.cpu().numpy()[:, 0])   # sync
+            step_s.append(now() - ts)
+        end = now()
+        occ_num += len(grp) * (end - start)
+        occ_time += end - start
+        allt = np.stack(outs, axis=1)              # (batch, gmax)
+        for i, r in enumerate(grp):
+            finished[r.rid] = {"arrival": r.arrival,
+                               "queue_wait": start - r.arrival,
+                               "latency": end - r.arrival,
+                               "gen": r.gen}
+            latency_s.append(end - r.arrival, step=r.rid)
+            tokens[r.rid] = allt[i, :r.gen].astype(np.int32)
+
+    rids = np.array(sorted(finished), np.int64)
+    makespan = now()
+    return ServeReport(
+        mode="static",
+        rids=rids,
+        arrivals=np.array([finished[r]["arrival"] for r in rids]),
+        queue_waits=np.array([finished[r]["queue_wait"] for r in rids]),
+        latencies=np.array([finished[r]["latency"] for r in rids]),
+        gen_counts=np.array([finished[r]["gen"] for r in rids]),
+        tokens=tokens,
+        makespan=makespan,
+        occupancy_mean=occ_num / occ_time / batch if occ_time else 0.0)
