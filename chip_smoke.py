@@ -33,11 +33,32 @@ passed over, nothing falls back to the CPU):
    and ``"torch"`` agree within ``1e-4`` on the per-step logits of
    ``paged_decode_step`` and, for the server's parallel prefill, on the
    ``transformer.forward`` logits and on the pages
-   ``ContinuousServer._parallel_prefill`` writes.
+   ``ContinuousServer._parallel_prefill`` writes;
+7. the CNN-training kernels (phases 3 and 4 also hold these): the fused
+   update bitwise equal to its plain version (fp32 and bf16, CaffeNet's
+   largest leaf and the slab of all 16 leaves, g = 4); the lowering-conv
+   forward (its lowered residual bitwise), wgrad and dgrad at the five
+   full-width CaffeNet layer shapes at group batch 64, plus a stride-2
+   dgrad, within ``1e-4 * max|want|`` abs and ``1e-5`` relative RMS (fp32
+   sums over K <= 3456 or M <= 193,600 in another order than cuBLAS);
+   timed beside the plain versions and ``F.conv2d`` /
+   ``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` (channels-last fp32,
+   TF32 off; timed here only);
+8. the training slice at full width: ``Engine`` trains CaffeNet (227x227x3,
+   1000 classes, 28.8 M fp32 params from a seed) on the synthetic image
+   stream at batch 256 — g = 4 ``grouped-fused`` for 1 warm-up + 5 rounds,
+   then g = 1 ``sync`` for 3 — through ``conv_impl="lowering_cuda"`` and
+   ``update_impl="cuda"``, with the launch counts zeroed before each run
+   and checked after it (per round: lowering_conv 5g, wgrad 5g, dgrad 4g,
+   fused_update 16), every loss finite; then ``torch.profiler`` over one
+   round (device idle share, the kernels that take the time);
+9. training parity: at full CaffeNet widths, batch 8, g = 2, one round
+   with the kernel arms and one with the plain arms (``lowering`` /
+   ``torch``) agree within ``1e-4`` on the loss and all 16 updated leaves.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
-phase 4 and prints no final line.
+phase 4 (and its training half) and prints no final line.
 """
 from __future__ import annotations
 
@@ -55,12 +76,17 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core peak
+FP32_FLOP_S = 67e12            # H100 SXM fp32, outside the tensor cores
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 BF16_REL_RMS = 1e-2            # ~2.5 bf16 ulps of relative error, on average
 
 PAGED = dict(B=8, K=4, G=7, hd=128, page=16, n_pages=64)   # qwen2-7b serving
 FLASH = dict(B=8, H=28, K=4, hd=128)
 SPIN_CYCLES = 20_000_000       # ~10 ms at the H100's clock: covers any enqueue
+
+CNN_GROUP_BATCH = 64           # CaffeNet batch 256 over g = 4 groups
+CNN_BATCH, CNN_GROUPS = 256, 4
+CONV_ABS, CONV_REL_RMS = 1e-4, 1e-5   # x max|want|; fp32 sums reordered
 
 
 def fail(msg: str) -> None:
@@ -122,10 +148,30 @@ def compare(torch, name, got, want, dtype_name) -> float:
     return err
 
 
-def bound(nbytes: float, flops: float):
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / BF16_FLOP_S
+def bound(nbytes: float, flops: float, flop_s: float = BF16_FLOP_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / flop_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def compare_fp32(torch, name, got, want) -> float:
+    """Max abs error <= CONV_ABS * max|want| and relative RMS error <=
+    CONV_REL_RMS; returns the max abs error."""
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output is not finite")
+    if got.shape != want.shape:
+        fail(f"{name}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+    if err > CONV_ABS * scale or rel > CONV_REL_RMS:
+        fail(f"{name}: kernel disagrees with its plain version: max abs err "
+             f"{err:.3e} (limit {CONV_ABS * scale:.3e}), relative RMS "
+             f"{rel:.3e} (limit {CONV_REL_RMS})")
+    log(f"[check] {name}: max_abs_err={err:.3e} (limit {CONV_ABS:g} x "
+        f"max|want| = {CONV_ABS * scale:.3e}) rel_rms={rel:.3e} ok")
+    return err
 
 
 # ---------------------------------------------------------------------------
@@ -528,6 +574,359 @@ def phase_parity(torch) -> None:
         f"{e_pages:.3e} (tol 1e-4) ok")
 
 
+# ---------------------------------------------------------------------------
+# the CNN-training slice
+# ---------------------------------------------------------------------------
+
+def caffenet_layers():
+    """[(x_shape, w_shape, stride), ...] of full-width CaffeNet's five conv
+    layers at the group batch the training run gives each of them."""
+    from repro_torch.models import cnn as C
+    return C.conv_layer_shapes(C.CAFFENET, CNN_GROUP_BATCH)
+
+
+def phase_check_train(torch) -> dict:
+    from repro_torch.core import tree as T
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.kernels.fused_update.ref import fused_update_ref
+    from repro_torch.kernels.lowering_conv import bwd
+    from repro_torch.kernels.lowering_conv.lowering_conv import \
+        lowering_conv_cuda
+    from repro_torch.kernels.lowering_conv.ref import lower
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.closed_form import grouped_coeffs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    errs = dict.fromkeys(("fused_update", "lowering_conv", "wgrad", "dgrad"),
+                         0.0)
+
+    # B1: bitwise, CaffeNet's largest leaf and the slab of all 16 leaves
+    params = C.init_params(g, C.CAFFENET)
+    leaves = T.leaves(params)
+    c = grouped_coeffs(CNN_GROUPS, lr=0.01, momentum=0.3)
+    big = max(leaves, key=lambda p: p.numel())
+    shape = "x".join(map(str, big.shape))
+    cases = [(f"largest leaf {shape} fp32", big),
+             (f"slab of all {len(leaves)} leaves fp32",
+              torch.cat([p.reshape(-1) for p in leaves])),
+             (f"largest leaf {shape} bf16", big.bfloat16())]
+    for label, w in cases:
+        v = (torch.randn(w.shape, generator=g, device=dev) * 1e-2).to(w.dtype)
+        gs = (torch.randn((CNN_GROUPS,) + tuple(w.shape), generator=g,
+                          device=dev) * 1e-3).to(w.dtype)
+        got = fu.fused_update_cuda(w, v, gs, c)
+        want = fused_update_ref(w, v, gs, c)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            bad = (got[0] != want[0]).sum().item() + (got[1] != want[1]).sum(
+                ).item()
+            fail(f"fused_update {label} g={CNN_GROUPS}: {bad} elements differ "
+                 "from the plain version (must be bitwise equal)")
+        log(f"[check] fused_update {label} ({w.numel()} elements) "
+            f"g={CNN_GROUPS}: bitwise equal to the plain version ok")
+        del v, gs, got, want
+    del params, leaves, cases, big
+
+    # B2-B4 at the five CaffeNet layers, then a stride-2 dgrad
+    for i, (xs, ws, s) in enumerate(caffenet_layers()):
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        kh, kw, cin, cout = ws
+        tag = f"conv{i + 1} x{xs} w{ws} s{s}"
+        y, low = lowering_conv_cuda(x, w, stride=s, return_lowered=True)
+        low_ref = lower(x, kh, kw, s)
+        y_ref = (low_ref @ w.reshape(kh * kw * cin, cout)).reshape(y.shape)
+        errs["lowering_conv"] = max(errs["lowering_conv"], compare_fp32(
+            torch, f"lowering_conv {tag}", y, y_ref))
+        if not torch.equal(low.reshape(low_ref.shape), low_ref):
+            fail(f"lowering_conv {tag}: the lowered residual differs from "
+                 "ref.lower (must be bitwise equal)")
+        log(f"[check] lowering_conv {tag}: residual {tuple(low.shape)} "
+            "bitwise equal to ref.lower ok")
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        del y, y_ref, low_ref
+        errs["wgrad"] = max(errs["wgrad"], compare_fp32(
+            torch, f"wgrad {tag}", bwd.wgrad_cuda(low, dy, ws),
+            bwd.wgrad_ref(low, dy, ws)))
+        if i > 0:                     # conv1 has needs_dgrad=False
+            errs["dgrad"] = max(errs["dgrad"], compare_fp32(
+                torch, f"dgrad {tag}", bwd.dgrad_cuda(dy, w, xs, stride=s),
+                bwd.dgrad_ref(dy, w, xs, s)))
+        del x, w, low, dy
+    xs, ws, s = (CNN_GROUP_BATCH, 27, 27, 96), (5, 5, 96, 256), 2
+    w = torch.randn(ws, generator=g, device=dev) * 0.05
+    dy = torch.randn((xs[0], 12, 12, 256), generator=g, device=dev)
+    errs["dgrad"] = max(errs["dgrad"], compare_fp32(
+        torch, f"dgrad stride 2 x{xs} w{ws}",
+        bwd.dgrad_cuda(dy, w, xs, stride=s), bwd.dgrad_ref(dy, w, xs, s)))
+    del w, dy
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_time_train(torch) -> dict:
+    """Device times at the training path's shapes: the fused update over
+    the 16 CaffeNet leaves of one round (g = 4), the conv kernels summed
+    over the five layers of one group's calls (group batch 64; dgrad over
+    layers 2-5), each beside its plain version, one PyTorch library call
+    and its bound (fp32 CUDA-core peak, HBM)."""
+    import torch.nn.functional as F
+    from repro_torch.core import tree as T
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.kernels.fused_update.ref import fused_update_ref
+    from repro_torch.kernels.lowering_conv import bwd
+    from repro_torch.kernels.lowering_conv.lowering_conv import \
+        lowering_conv_cuda
+    from repro_torch.kernels.lowering_conv.ref import lower
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.closed_form import grouped_coeffs
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    out = {}
+
+    # B1: one round's 16 leaf updates, g = 4
+    gsz = CNN_GROUPS
+    leaves = T.leaves(C.init_params(g, C.CAFFENET))
+    vs = [torch.randn_like(p) * 1e-2 for p in leaves]
+    gss = [torch.randn((gsz,) + tuple(p.shape), generator=g, device=dev)
+           for p in leaves]
+    c = grouped_coeffs(gsz, lr=0.01, momentum=0.3)
+    n = sum(p.numel() for p in leaves)
+
+    def run_all(fn):
+        return lambda: [fn(p, v, gg, c) for p, v, gg in zip(leaves, vs, gss)]
+
+    ms = cuda_ms(torch, run_all(fu.fused_update_cuda), iters=20, flush=flush)
+    plain = cuda_ms(torch, run_all(fused_update_ref), iters=10, flush=flush)
+    b_ms, b_by = bound(4 * (gsz + 4) * n, (4 * gsz + 6) * n, FP32_FLOP_S)
+    out["fused_update"] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                               bound_ms=b_ms, bound_by=b_by)
+    log(f"[time] fused_update fp32 g={gsz}, the {len(leaves)} CaffeNet "
+        f"leaves of one round ({n} params, {len(leaves)} launches): "
+        f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms=none (no single "
+        f"PyTorch call computes it) bound_ms={b_ms:.5f} ({b_by}) "
+        f"achieved={4 * (gsz + 4) * n / ms / 1e6:.0f} GB/s")
+    del leaves, vs, gss
+
+    tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
+                   flops=0.0) for k in ("lowering_conv", "wgrad", "dgrad")}
+
+    def add(name, tag, ms, plain, lib, nbytes, flops):
+        t = tot[name]
+        for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                     ("nbytes", nbytes), ("flops", flops)):
+            t[k] += v
+        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_S)
+        log(f"[time] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"achieved={flops / ms / 1e9:.2f} TFLOP/s")
+
+    for i, (xs, ws, s) in enumerate(caffenet_layers()):
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        kh, kw, cin, cout = ws
+        K = kh * kw * cin
+        y, low = lowering_conv_cuda(x, w, stride=s, return_lowered=True)
+        M = y.numel() // cout
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        xc = x.permute(0, 3, 1, 2)                   # NCHW view, channels-last
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        dyc = dy.permute(0, 3, 1, 2)
+        wm = w.reshape(K, cout)
+        tag = f"conv{i + 1} x{xs} w{ws} s{s}"
+        gemm = 2.0 * M * K * cout
+        add("lowering_conv", tag + " (with the residual)",
+            cuda_ms(torch, lambda: lowering_conv_cuda(
+                x, w, stride=s, return_lowered=True), iters=10, flush=flush),
+            cuda_ms(torch, lambda: lower(x, kh, kw, s) @ wm, iters=5,
+                    flush=flush),
+            cuda_ms(torch, lambda: F.conv2d(xc, wc, stride=s), iters=10,
+                    flush=flush),
+            4.0 * (x.numel() + w.numel() + M * cout + M * K), gemm)
+        add("wgrad", tag,
+            cuda_ms(torch, lambda: bwd.wgrad_cuda(low, dy, ws), iters=10,
+                    flush=flush),
+            cuda_ms(torch, lambda: bwd.wgrad_ref(low, dy, ws), iters=5,
+                    flush=flush),
+            cuda_ms(torch, lambda: torch.nn.grad.conv2d_weight(
+                xc, wc.shape, dyc, stride=s), iters=10, flush=flush),
+            4.0 * (M * K + M * cout + K * cout), gemm)
+        if i > 0:
+            add("dgrad", tag,
+                cuda_ms(torch, lambda: bwd.dgrad_cuda(dy, w, xs, stride=s),
+                        iters=10, flush=flush),
+                cuda_ms(torch, lambda: bwd.dgrad_ref(dy, w, xs, s), iters=5,
+                        flush=flush),
+                cuda_ms(torch, lambda: torch.nn.grad.conv2d_input(
+                    xc.shape, wc, dyc, stride=s), iters=10, flush=flush),
+                4.0 * (M * cout + K * cout + x.numel()), gemm + M * K)
+        del x, w, y, low, dy, xc, wc, dyc, wm
+    for name, t in tot.items():
+        b_ms, b_by = bound(t["nbytes"], t["flops"], FP32_FLOP_S)
+        out[name] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
+                         library_ms=t["library_ms"], bound_ms=b_ms,
+                         bound_by=b_by)
+        log(f"[time] {name} summed over one group's layers: "
+            f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
+            f"library_ms={t['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"achieved={t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s")
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def _train_counts():
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.kernels.lowering_conv import bwd
+    from repro_torch.kernels.lowering_conv import lowering_conv as lc
+    return {"lowering_conv": lc.lowering_conv_cuda,
+            "wgrad": bwd.wgrad_cuda, "dgrad": bwd.dgrad_cuda,
+            "fused_update": fu.fused_update_cuda}
+
+
+def _train_run(torch, engine, params, mom, data, rounds: int, label: str):
+    """One engine run with the four launch counts zeroed just before it and
+    checked just after against the run's own rounds."""
+    g = engine.num_groups
+    counts = _train_counts()
+    for fn in counts.values():
+        fn.launches = 0
+    params, mom, losses = engine.run(
+        params, mom, data.batches(rounds), steps=rounds, log_every=1,
+        log=lambda m: log(f"[train:{label}] {m}"))
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in counts.items()}
+    want = {"lowering_conv": 5 * g * rounds, "wgrad": 5 * g * rounds,
+            "dgrad": 4 * g * rounds, "fused_update": 16 * rounds}
+    log(f"[train:{label}] {rounds} rounds at g={g}: launches {got} "
+        f"(want {want})")
+    if len(losses) != rounds:
+        fail(f"{label} run: {len(losses)} of {rounds} rounds ran")
+    if got != want:
+        fail(f"{label} run: launch counts {got} != {want}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{label} run: non-finite loss in {losses}")
+    tel = engine.telemetry
+    steady = tel.step_s[tel.skip:]
+    log(f"[train:{label}] losses {[round(x, 4) for x in losses]}; step ms "
+        f"(host clock, after the warm-up round) median "
+        f"{statistics.median(steady) * 1e3:.1f} min {min(steady) * 1e3:.1f} "
+        f"max {max(steady) * 1e3:.1f}; images/s "
+        f"{CNN_BATCH / statistics.median(steady):.1f}; first round "
+        f"{tel.step_s[0] * 1e3:.1f} ms; host data wait median "
+        f"{statistics.median(tel.data_s[tel.skip:]) * 1e3:.1f} ms")
+    return params, mom, got
+
+
+def phase_train_profile(torch, engine, params, mom, batch) -> None:
+    """One full-width round: wall on the host clock (no profiler), device
+    busy time (the sum of kernel times under ``torch.profiler``), the
+    device's idle share, and the kernels that take the time."""
+    from torch.profiler import ProfilerActivity, profile
+    engine.step(params, mom, batch)                        # warm
+    t0 = time.perf_counter()
+    engine.step(params, mom, batch)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.step(params, mom, batch)
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kernels.append((us / 1e3, e.count, e.key))
+    busy = sum(k[0] for k in kernels)
+    kernels.sort(reverse=True)
+    log(f"[profile] full-width CaffeNet round, batch {CNN_BATCH}, "
+        f"g={engine.num_groups}: wall {wall_ms:.2f} ms (host clock, no "
+        f"profiler), device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}, {sum(k[1] for k in kernels)} kernels")
+    for ms, n, name in kernels[:10]:
+        log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:80]}")
+
+
+def phase_train(torch) -> dict:
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages, prefetch
+    from repro_torch.engine import Engine
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.sgd import init_momentum
+    cfg = C.CAFFENET
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    params = C.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(p.numel() for p in T.leaves(params))
+    t0 = time.perf_counter()
+    data = SyntheticImages(DataConfig(
+        batch_size=CNN_BATCH, image_size=cfg.image_size,
+        channels=cfg.in_channels, num_classes=cfg.num_classes, seed=0))
+    log(f"[train] CaffeNet {cfg.image_size}x{cfg.image_size}x"
+        f"{cfg.in_channels}, {cfg.num_classes} classes, {n_params} fp32 "
+        f"params ({len(T.leaves(params))} leaves), conv_impl="
+        f"{cfg.conv_impl}; image stream set up in "
+        f"{time.perf_counter() - t0:.1f} s")
+    kw = dict(lr=0.01, momentum=0.3, head_filter=C.head_filter,
+              update_impl="cuda", device=dev)
+
+    def loss_fn(p, b):
+        return C.loss_fn(p, b, cfg)
+
+    eng = Engine(loss_fn, strategy="grouped-fused", num_groups=CNN_GROUPS,
+                 **kw)
+    log(f"[train] {eng.describe()} "
+        f"batch {CNN_BATCH}")
+    params, mom, c4 = _train_run(torch, eng, params, init_momentum(params),
+                                 data, 6, "g4")
+    batch = next(prefetch(data.batches(1), device=dev))
+    phase_train_profile(torch, eng, params, mom, batch)
+    sync = Engine(loss_fn, strategy="sync", num_groups=1, **kw)
+    params, mom, c1 = _train_run(torch, sync, params, mom, data, 3, "sync")
+    log(f"[train] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        "GB")
+    del params, mom, batch
+    torch.cuda.empty_cache()
+    return {k: c4[k] + c1[k] for k in c4}
+
+
+def phase_train_parity(torch) -> None:
+    """Full CaffeNet widths, batch 8, g = 2: one round through the kernel
+    arms and one through the plain arms, from the same parameters."""
+    import dataclasses
+    from repro_torch.core import tree as T
+    from repro_torch.engine import Engine
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.sgd import init_momentum
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+    params = C.init_params(g, C.CAFFENET)
+    mom = T.tree_map(lambda p: torch.randn(p.shape, generator=g,
+                                           device=dev) * 1e-3, params)
+    cfg0 = C.CAFFENET
+    size = (8, cfg0.image_size, cfg0.image_size, cfg0.in_channels)
+    batch = {"images": torch.randn(size, generator=g, device=dev),
+             "labels": torch.randint(cfg0.num_classes, (8,), generator=g,
+                                     device=dev, dtype=torch.int32)}
+    out = {}
+    for conv, upd in (("lowering_cuda", "cuda"), ("lowering", "torch")):
+        cfg = dataclasses.replace(cfg0, conv_impl=conv)
+        eng = Engine(lambda p, b, cfg=cfg: C.loss_fn(p, b, cfg),
+                     num_groups=2, lr=0.01, momentum=0.3, update_impl=upd,
+                     head_filter=C.head_filter, device=dev)
+        out[conv] = eng.step(params, mom, batch)
+    (pk, vk, lk), (pp, vp, lp) = out["lowering_cuda"], out["lowering"]
+    worst = _close(torch, "CaffeNet round loss", lk, lp)
+    for (path, a), b in zip(T.leaves_with_path(pk) + T.leaves_with_path(vk),
+                            T.leaves(pp) + T.leaves(vp)):
+        worst = max(worst, _close(torch, f"CaffeNet round leaf {path}", a, b))
+    log(f"[parity] full-width CaffeNet, batch 8, g=2, one round: kernel arms "
+        f"vs plain arms, loss {lk.item():.6f} vs {lp.item():.6f}, max abs "
+        f"err over the loss and the {len(T.leaves(pk))} updated leaves (and "
+        f"their momentum) {worst:.3e} (tol 1e-4) ok")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -549,12 +948,16 @@ def main(argv=None) -> None:
     smi = phase_env(torch)
     phase_build()
     errs = phase_check(torch)
+    errs.update(phase_check_train(torch))
     times = phase_time(torch)
+    times.update(phase_time_train(torch))
     if args.kernels_only:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return
     launches = phase_slice(torch)
     phase_parity(torch)
+    launches.update(phase_train(torch))
+    phase_train_parity(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [
@@ -568,6 +971,23 @@ def main(argv=None) -> None:
                    "flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention/flash_attention.py:83",
          "launches": launches["flash"]},
+        {"name": "fused_update", "route": "cuda",
+         "source": "src/repro_torch/kernels/fused_update/csrc/fused_update.cu",
+         "replaces": "src/repro/kernels/fused_update/fused_update.py:53",
+         "launches": launches["fused_update"]},
+        {"name": "lowering_conv", "route": "cuda",
+         "source": "src/repro_torch/kernels/lowering_conv/csrc/"
+                   "lowering_conv.cu",
+         "replaces": "src/repro/kernels/lowering_conv/lowering_conv.py:91",
+         "launches": launches["lowering_conv"]},
+        {"name": "wgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/lowering_conv/csrc/wgrad.cu",
+         "replaces": "src/repro/kernels/lowering_conv/bwd.py:106",
+         "launches": launches["wgrad"]},
+        {"name": "dgrad", "route": "cuda",
+         "source": "src/repro_torch/kernels/lowering_conv/csrc/dgrad.cu",
+         "replaces": "src/repro/kernels/lowering_conv/bwd.py:143",
+         "launches": launches["dgrad"]},
     ]
     for row in rows:
         t = times[row["name"]]
@@ -577,6 +997,8 @@ def main(argv=None) -> None:
         if not all(math.isfinite(row[k]) for k in
                    ("max_abs_err", "ms", "plain_ms", "bound_ms")):
             fail(f"non-finite measurement in {row}")
+        if row["launches"] < 1:
+            fail(f"{row['name']} was launched no time on the main path")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

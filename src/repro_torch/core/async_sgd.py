@@ -1,0 +1,193 @@
+"""Asynchronous (stale-gradient) SGD with compute groups: the deployable
+grouped step (the JAX package's ``core/async_sgd.py``, single device).
+
+Each round, all g groups compute gradients at the round-start parameters,
+then the g updates land with staleness 0..g-1 — the paper's Fig. 17(b)
+round-robin picture. ``head_filter`` implements the merged-FC
+optimization: head params see one averaged (zero-staleness) update each
+round.
+
+Because all g gradients are evaluated at round-start parameters, the g
+sequential momentum-SGD sub-steps form a linear recurrence with a
+closed-form solution (``optim/closed_form.py``). ``strategy="fused"``
+applies that closed form in ONE pass over the parameters
+(``kernels/fused_update``); ``strategy="scan"`` keeps the literal O(g)
+sequential application as the semantic reference. Both reduce exactly to
+synchronous data-parallel SGD at g=1.
+
+``delayed_sgd_run`` (Theorem-1-exact delayed SGD) is not ported yet
+(ROADMAP Queue A item 5).
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from repro_torch.core import tree as T
+from repro_torch.kernels.fused_update.ops import fused_group_update
+from repro_torch.optim.closed_form import (_weight_scales, grouped_coeffs,
+                                           head_coeffs)
+
+
+def scan_grouped_update(params, grads, mom_buf, *, lr: float, momentum: float,
+                        weight_decay: float = 0.0, head_mask=None,
+                        group_weights: Optional[Sequence[float]] = None):
+    """Reference O(g) update application: the literal sequential loop over
+    the g sub-steps (plus the merged-FC head update). ``grads`` carries a
+    leading (g, ...) group axis per leaf. Returns (params, mom_buf).
+
+    ``group_weights``: group i's gradient is pre-scaled by
+    ``g * w_i / sum(w)`` before every use, so the head sees the
+    share-weighted average and sub-step i a share-scaled step. Uniform
+    weights scale by exactly 1.0 — bitwise the unweighted path.
+    """
+    g = T.leaves(grads)[0].shape[0]
+    if head_mask is None:
+        head_mask = T.tree_map(lambda _: False, params)
+    scales = _weight_scales(g, group_weights)
+    if scales is not None:
+        def scale(gr):
+            s = torch.tensor(scales, dtype=torch.float32, device=gr.device)
+            return gr * s.reshape((g,) + (1,) * (gr.dim() - 1)).to(gr.dtype)
+        grads = T.tree_map(scale, grads)
+
+    # merged-FC head: single synchronous (share-weighted) averaged update
+    # per round — with pre-scaled gradients the plain mean is that average
+    head_grads = T.tree_map(lambda gr: gr.mean(dim=0), grads)
+
+    def upd_leaf(p, gg, v):
+        g32 = gg.float()
+        if weight_decay:
+            g32 = g32 + weight_decay * p.float()
+        v_new = momentum * v.float() - lr * g32
+        return (p.float() + v_new).to(p.dtype), v_new.to(v.dtype)
+
+    for i in range(g):
+        # backbone: apply group-i gradient; head: untouched this sub-step
+        new = T.tree_map(
+            lambda m, pp, gg, vv: (pp, vv) if m else upd_leaf(pp, gg[i], vv),
+            head_mask, params, grads, mom_buf)
+        params, mom_buf = T.unzip2(new, head_mask)
+    # head update (zero-staleness, merged FC), once per round
+    new = T.tree_map(
+        lambda m, pp, gg, vv: upd_leaf(pp, gg, vv) if m else (pp, vv),
+        head_mask, params, head_grads, mom_buf)
+    return T.unzip2(new, head_mask)
+
+
+def apply_grouped_update(params, grads, mom_buf, *, strategy: str, lr: float,
+                         momentum: float, weight_decay: float = 0.0,
+                         head_mask=None,
+                         group_weights: Optional[Sequence[float]] = None,
+                         update_impl: str = "torch",
+                         coeffs=None, hcoeffs=None):
+    """Apply one round of grouped updates (``grads`` leading axis = g) via
+    either strategy — the update-application entry point shared by
+    ``make_grouped_train_step`` and the engine. Returns
+    ``(params, mom_buf)``. ``coeffs`` / ``hcoeffs`` may be precomputed by
+    the caller for the fused path."""
+    if strategy == "scan":
+        return scan_grouped_update(
+            params, grads, mom_buf, lr=lr, momentum=momentum,
+            weight_decay=weight_decay, head_mask=head_mask,
+            group_weights=group_weights)
+    if strategy != "fused":
+        raise ValueError(f"unknown strategy {strategy!r}")
+    g = T.leaves(grads)[0].shape[0]
+    if coeffs is None:
+        coeffs = grouped_coeffs(g, lr=lr, momentum=momentum,
+                                weight_decay=weight_decay,
+                                group_weights=group_weights)
+    if hcoeffs is None:
+        hcoeffs = head_coeffs(g, lr=lr, momentum=momentum,
+                              weight_decay=weight_decay,
+                              group_weights=group_weights)
+    return fused_group_update(params, grads, mom_buf, coeffs=coeffs,
+                              head_coeffs=hcoeffs, head_mask=head_mask,
+                              impl=update_impl)
+
+
+def head_mask_tree(params, head_filter: Optional[Callable]):
+    """Bool tree marking merged-FC head leaves (True) — the mask consumed
+    by both update strategies."""
+    if head_filter is None:
+        return T.tree_map(lambda _: False, params)
+    return T.tree_map_with_path(lambda path, _: bool(head_filter(path)),
+                                params)
+
+
+def make_grouped_train_step(loss_fn: Callable, *, num_groups: int, lr: float,
+                            momentum: float, weight_decay: float = 0.0,
+                            head_filter: Optional[Callable] = None,
+                            grad_accum: int = 1, strategy: str = "fused",
+                            update_impl: str = "torch",
+                            group_weights: Optional[Sequence[float]] = None):
+    """Build ``step(params, mom_buf, batches) -> (params, mom_buf, loss)``.
+
+    ``batches``: tree with leading axis ``(g, ...)`` (one microbatch per
+    group, see ``group_batch_split``); with grad_accum > 1 the per-group
+    batch has a further leading accumulation axis ``(g, A, ...)``.
+
+    Every group's gradient is taken at the round-start parameters: a loop
+    over the groups with ``torch.autograd.grad`` stands for the JAX
+    ``jax.vmap`` (``torch.func.vmap`` cannot enter an ``autograd.Function``
+    whose kernels are called through ``ctypes``), and each leaf's g
+    gradients are stacked to ``(g, ...)``. ``head_filter(path) -> bool``
+    marks head ("FC-phase") params: merged-FC semantics. ``strategy``:
+    "fused" (the closed form in one pass, leaf path ``update_impl``) or
+    "scan" (the literal sequential reference). ``group_weights``: per-group
+    batch shares.
+    """
+    if strategy not in ("fused", "scan"):
+        raise ValueError(f"unknown strategy {strategy!r}")
+    if group_weights is not None:
+        group_weights = tuple(float(w) for w in group_weights)
+    g = num_groups
+    coeffs = grouped_coeffs(g, lr=lr, momentum=momentum,
+                            weight_decay=weight_decay,
+                            group_weights=group_weights)
+    hcoeffs = head_coeffs(g, lr=lr, momentum=momentum,
+                          weight_decay=weight_decay,
+                          group_weights=group_weights)
+
+    def value_and_grad(params, batch):
+        flat = [p.detach().requires_grad_(True) for p in T.leaves(params)]
+        with torch.enable_grad():
+            loss = loss_fn(T.unflatten(params, flat), batch)
+            grads = torch.autograd.grad(loss, flat)
+        return loss.detach(), list(grads)
+
+    def per_group_grad(params, batch):
+        if grad_accum == 1:
+            return value_and_grad(params, batch)
+        # fp32 sums from the first term on (0 + x == x: the JAX scan's
+        # zero-initialised fp32 carry, without the zeros)
+        total, acc = None, None
+        for a in range(grad_accum):
+            loss, gr = value_and_grad(params,
+                                      T.tree_map(lambda x: x[a], batch))
+            gr = [x.float() for x in gr]
+            total = loss if total is None else total + loss
+            acc = gr if acc is None else [x + y for x, y in zip(acc, gr)]
+        return total / grad_accum, [x / grad_accum for x in acc]
+
+    def step(params, mom_buf, batches):
+        # all group gradients at round-start params, one group at a time
+        losses, per_leaf = [], None
+        for i in range(g):
+            loss, gr = per_group_grad(params,
+                                      T.tree_map(lambda x: x[i], batches))
+            losses.append(loss)
+            per_leaf = [[x] for x in gr] if per_leaf is None else [
+                lst + [x] for lst, x in zip(per_leaf, gr)]
+        grads = T.unflatten(params, [torch.stack(lst) for lst in per_leaf])
+        params, mom_buf = apply_grouped_update(
+            params, grads, mom_buf, strategy=strategy, lr=lr,
+            momentum=momentum, weight_decay=weight_decay,
+            head_mask=head_mask_tree(params, head_filter),
+            group_weights=group_weights, update_impl=update_impl,
+            coeffs=coeffs, hcoeffs=hcoeffs)
+        return params, mom_buf, torch.stack(losses).mean()
+
+    return step

@@ -1,1 +1,4 @@
-"""Timing: the port's one clock and its CUDA-synchronizing probe."""
+"""The training engine (``engine.Engine``, strategies in ``strategies``)
+and timing: the port's one clock, its CUDA-synchronizing probe and the
+per-step ``Telemetry``."""
+from repro_torch.engine.engine import Engine

@@ -1,11 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``kernels/<name>/csrc/<name>.cu`` is compiled at first use by
+Every ``kernels/<package>/csrc/<name>.cu`` is compiled at first use by
 ``nvcc`` into its own shared library with a plain C interface, which
 ``ctypes`` loads (no PyTorch headers, so a build takes seconds, not
 minutes). Libraries go to ``build/repro_torch/`` at the repository root,
-named by a hash of the source and the flags, so a changed source is
-rebuilt and an unchanged one is not. All stale sources are compiled at
+named by a hash of the source, the headers beside it and the flags, so a
+changed source is rebuilt and an unchanged one is not. All stale sources are compiled at
 once, one ``nvcc`` process each.
 
 Each C entry point launches on the stream it is given and returns
@@ -47,8 +47,11 @@ def nvcc() -> str:
 
 
 def target(src: Path) -> Path:
-    """The library a source builds into (named by content + flags)."""
+    """The library a source builds into, named by the content of the source
+    and of the headers beside it (``csrc/*.cuh``) and by the flags."""
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for hdr in sorted(src.parent.glob("*.cuh")):
+        h.update(hdr.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
@@ -93,6 +96,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
     return lib
+
+
+def launcher(name: str, argtypes):
+    """Kernel ``name``'s C entry point ``<name>_launch`` with its ctypes
+    signature set (``argtypes`` in order; it returns an int error code)."""
+    fn = getattr(load(name), f"{name}_launch")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
 
 
 def check(err: int, name: str) -> None:

@@ -29,15 +29,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.flash_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _check(q, k, v, q_offsets) -> None:
     dev = q.device
     for name, t in (("k", k), ("v", v), ("q_offsets", q_offsets)):
@@ -78,7 +69,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window=None,
                                    q_offsets=q_offsets)
     _check(q, k, v, q_offsets)
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
+    err = _build.launcher(KERNEL, ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         None if q_offsets is None else q_offsets.data_ptr(), out.data_ptr(),
         b, h, kh, sq, k.shape[1], hd, int(bool(causal)),

@@ -1,0 +1,161 @@
+"""Backward pass of the lowering conv as batched GEMMs (paper §III applied
+to backprop; the JAX package's ``kernels/lowering_conv/bwd.py``).
+
+Both gradients are GEMMs over the *same* lowered patch matrix the forward
+already built:
+
+  wgrad   dW_hat = lowered(x)^T @ dY_hat          one (K, M) x (M, Cout) GEMM
+  dgrad   dCols  = dY_hat @ K_hat^T               one (M, Cout) x (Cout, K) GEMM
+          dX     = col2im(dCols)                  the K = kh*kw*Cin patch
+                                                  columns added back to pixels
+
+Plain versions (``wgrad_ref``, ``col2im_ref``, ``dgrad_ref``: the JAX
+``*_xla`` forms) and the wrappers of the two kernels: ``wgrad_cuda``
+(``csrc/wgrad.cu``: split-M partial products, then a fixed-order sum) and
+``dgrad_cuda`` (``csrc/dgrad.cu``: the product into an fp32 scratch, then
+col2im in gather form). A CUDA tensor launches the kernel (or raises); a
+CPU tensor takes the plain version. Each wrapper call adds one to its
+``launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lowering_conv.lowering_conv import (check_operands,
+                                                             out_hw)
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ``wgrad_launch``'s C signature, in order
+WGRAD_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
+#: ``dgrad_launch``'s C signature, in order
+DGRAD_ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
+
+WGRAD_MAX_SLICE_ROWS = 2048    # rows one block sums in order (fp32 error)
+WGRAD_TARGET_BLOCKS = 4 * 132  # four blocks per SM of an H100
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def wgrad_ref(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
+    """lowered: (M, kh*kw*Cin) or (B, Ho, Wo, kh*kw*Cin) forward residual;
+    dy: (..., Cout) cotangent. Returns dW (kh, kw, Cin, Cout) via one GEMM —
+    no re-lowering."""
+    kh, kw, cin, cout = kshape
+    low = lowered.reshape(-1, kh * kw * cin)
+    return (low.T @ dy.reshape(-1, cout)).reshape(kh, kw, cin, cout)
+
+
+def _col2im_accumulate(g: torch.Tensor, h: int, w: int, kh: int, kw: int,
+                       stride: int) -> torch.Tensor:
+    """Add patch-column gradients g (B, Ho, Wo, kh*kw, Cin) onto a
+    (B, H, W, Cin) grid, one tap (i, j) at a time in order — the JAX
+    interior-padded adds, with the zero terms left out."""
+    b, ho, wo, _, cin = g.shape
+    dx = torch.zeros((b, h, w, cin), dtype=g.dtype, device=g.device)
+    idx = 0
+    for i in range(kh):
+        for j in range(kw):
+            dx[:, i:i + (ho - 1) * stride + 1:stride,
+               j:j + (wo - 1) * stride + 1:stride, :] += g[:, :, :, idx, :]
+            idx += 1
+    return dx
+
+
+def col2im_ref(dcols: torch.Tensor, x_shape, kh: int, kw: int,
+               stride: int) -> torch.Tensor:
+    """Patch-column gradients (B*Ho*Wo, kh*kw*Cin) back onto the image
+    grid (the lifting phase transposed)."""
+    b, h, w, cin = x_shape
+    ho, wo = out_hw(h, w, kh, kw, stride)
+    g = dcols.reshape(b, ho, wo, kh * kw, cin)
+    return _col2im_accumulate(g, h, w, kh, kw, stride)
+
+
+def dgrad_ref(dy: torch.Tensor, w: torch.Tensor, x_shape,
+              stride: int) -> torch.Tensor:
+    """dX via one GEMM against the kernel matrix, then col2im."""
+    kh, kw, cin, cout = w.shape
+    dcols = dy.reshape(-1, cout) @ w.reshape(kh * kw * cin, cout).T
+    return col2im_ref(dcols, x_shape, kh, kw, stride)
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+
+def wgrad_slices(m: int, k: int, cout: int):
+    """(slice_rows, slices) of the split over the M rows: enough blocks to
+    fill the card, at most ``WGRAD_MAX_SLICE_ROWS`` rows summed in order by
+    any one block, slices a multiple of 16 rows. Depends on the shapes only,
+    so a run gives the same bits as the last one."""
+    tiles = math.ceil(k / 64) * math.ceil(cout / 64)
+    s = max(math.ceil(m / WGRAD_MAX_SLICE_ROWS),
+            math.ceil(WGRAD_TARGET_BLOCKS / tiles))
+    s = min(s, math.ceil(m / 16))
+    rows = math.ceil(math.ceil(m / s) / 16) * 16
+    return rows, math.ceil(m / rows)
+
+
+def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
+    """lowered: (B, Ho, Wo, kh*kw*Cin) forward residual (or (M, K));
+    dy: (B, Ho, Wo, Cout). Returns dW (kh, kw, Cin, Cout) in fp32."""
+    kh, kw, cin, cout = kshape
+    K = kh * kw * cin
+    if lowered.shape[-1] != K or dy.shape[-1] != cout:
+        raise ValueError(f"lowered {tuple(lowered.shape)} / dy "
+                         f"{tuple(dy.shape)} do not fit kernel {tuple(kshape)}")
+    m = lowered.numel() // K
+    if dy.numel() != m * cout:
+        raise ValueError(f"dy has {dy.numel() // cout} rows, lowered {m}")
+    if lowered.device.type != "cuda":
+        return wgrad_ref(lowered, dy, kshape)
+    check_operands(lowered=lowered, dy=dy)
+    rows, slices = wgrad_slices(m, K, cout)
+    part = torch.empty((slices, K, cout), dtype=torch.float32,
+                       device=lowered.device)
+    dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
+                     device=lowered.device)
+    err = _build.launcher("wgrad", WGRAD_ARGTYPES)(
+        lowered.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), m,
+        K, cout, rows, slices, lowered.device.index or 0,
+        torch.cuda.current_stream(lowered.device).cuda_stream)
+    _build.check(err, "wgrad")
+    wgrad_cuda.launches += 1
+    return dw
+
+
+wgrad_cuda.launches = 0
+
+
+def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
+               stride: int = 1) -> torch.Tensor:
+    """dy: (B, Ho, Wo, Cout); w: (kh, kw, Cin, Cout). Returns dX of
+    ``x_shape`` (B, H, W, Cin) in fp32."""
+    b, h, wd, cin = x_shape
+    kh, kw, cin_w, cout = w.shape
+    ho, wo = out_hw(h, wd, kh, kw, stride)
+    if cin_w != cin or tuple(dy.shape) != (b, ho, wo, cout):
+        raise ValueError(f"dy {tuple(dy.shape)} / w {tuple(w.shape)} do not "
+                         f"fit x {tuple(x_shape)} at stride {stride}")
+    if dy.device.type != "cuda":
+        return dgrad_ref(dy, w, x_shape, stride)
+    check_operands(dy=dy, w=w)
+    dcols = torch.empty((b * ho * wo, kh * kw * cin), dtype=torch.float32,
+                        device=dy.device)
+    dx = torch.empty(tuple(x_shape), dtype=torch.float32, device=dy.device)
+    err = _build.launcher("dgrad", DGRAD_ARGTYPES)(
+        dy.data_ptr(), w.data_ptr(), dcols.data_ptr(), dx.data_ptr(), b, h,
+        wd, cin, kh, kw, stride, cout, dy.device.index or 0,
+        torch.cuda.current_stream(dy.device).cuda_stream)
+    _build.check(err, "dgrad")
+    dgrad_cuda.launches += 1
+    return dx
+
+
+dgrad_cuda.launches = 0

@@ -1,0 +1,105 @@
+"""The lowering-conv forward kernel's wrapper (``lowering_conv_cuda``) and
+the tile arithmetic the JAX package exposes with it.
+
+``csrc/lowering_conv.cu`` is an implicit GEMM: each block lowers the image
+patches of its 64 output rows into shared memory, 16 columns of the
+(kh*kw*Cin, Cout) kernel matrix at a time, and never writes the lowered
+matrix to device memory except as the backward's residual
+(``return_lowered``). Its tiles are fixed; ``largest_divisor`` and
+``choose_tiles`` are the TPU kernel's (b_p, r_b) tile resolution, kept for
+the callers that report it (the VMEM footprint model ``vmem_bytes`` and the
+tile autotuner wait for a Hopper shared-memory model: ROADMAP).
+
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
+plain version (``ref.lower`` + ``ref.lowered_conv_ref``). Every launch adds
+one to ``lowering_conv_cuda.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.lowering_conv.ref import lower
+
+KERNEL = "lowering_conv"
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: ``lowering_conv_launch``'s C signature, in order
+ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
+
+
+def largest_divisor(n: int, cap: int) -> int:
+    """Largest divisor of n that is <= cap (>= 1). O(sqrt n) via divisor
+    pairs instead of decrement-by-1 probing."""
+    cap = max(1, min(cap, n))
+    best = 1
+    d = 1
+    while d * d <= n:
+        if n % d == 0:
+            if d <= cap:
+                best = max(best, d)
+            if n // d <= cap:
+                best = max(best, n // d)
+        d += 1
+    return best
+
+
+def choose_tiles(b: int, ho: int, bp: int, rb: int) -> tuple:
+    """Resolve requested (b_p, r_b) to the tile sizes the TPU kernel runs:
+    the largest divisors of the batch / output-rows not exceeding the
+    request."""
+    return largest_divisor(b, bp), largest_divisor(ho, rb)
+
+
+def check_operands(**tensors) -> None:
+    """fp32, contiguous, all on the first tensor's device (the three conv
+    kernels take nothing else)."""
+    dev = next(iter(tensors.values())).device
+    for name, t in tensors.items():
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, not {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} dtype {t.dtype}: the conv kernels run "
+                            "in fp32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def out_hw(h: int, w: int, kh: int, kw: int, stride: int):
+    if stride < 1 or kh > h or kw > w:
+        raise ValueError(f"a {kh}x{kw} stride-{stride} VALID conv does not "
+                         f"fit a {h}x{w} image")
+    return (h - kh) // stride + 1, (w - kw) // stride + 1
+
+
+def lowering_conv_cuda(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
+                       return_lowered: bool = False):
+    """x: (B,H,W,Cin); w: (kh,kw,Cin,Cout); VALID padding. Returns y
+    (B,Ho,Wo,Cout), and with ``return_lowered`` also the lowered patch
+    matrix (B,Ho,Wo,kh*kw*Cin), the residual the backward reuses."""
+    b, h, wd, cin = x.shape
+    kh, kw, cin_w, cout = w.shape
+    if cin_w != cin:
+        raise ValueError(f"w has {cin_w} input channels, x {cin}")
+    ho, wo = out_hw(h, wd, kh, kw, stride)
+    if x.device.type != "cuda":
+        low = lower(x, kh, kw, stride)
+        y = (low @ w.reshape(kh * kw * cin, cout)).reshape(b, ho, wo, cout)
+        return (y, low.reshape(b, ho, wo, -1)) if return_lowered else y
+    check_operands(x=x, w=w)
+    y = torch.empty((b, ho, wo, cout), dtype=x.dtype, device=x.device)
+    low = (torch.empty((b, ho, wo, kh * kw * cin), dtype=x.dtype,
+                       device=x.device) if return_lowered else None)
+    err = _build.launcher(KERNEL, ARGTYPES)(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(),
+        None if low is None else low.data_ptr(), b, h, wd, cin, kh, kw,
+        stride, cout, x.device.index or 0,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, KERNEL)
+    lowering_conv_cuda.launches += 1
+    return (y, low) if return_lowered else y
+
+
+lowering_conv_cuda.launches = 0

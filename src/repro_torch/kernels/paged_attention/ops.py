@@ -31,15 +31,6 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(KERNEL)
-    fn = lib.paged_attention_launch
-    if fn.argtypes is None:
-        fn.argtypes = ARGTYPES
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def _check(q, k_pages, v_pages, table, pos, G: int) -> None:
     dev = q.device
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
@@ -102,7 +93,7 @@ def paged_attention(q, k_pages, v_pages, table, pos, *, window=None):
     G = h // kh
     _check(q, k_pages, v_pages, table, pos, G)
     out = torch.empty_like(q)
-    err = _lib().paged_attention_launch(
+    err = _build.launcher(KERNEL, ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         table.data_ptr(), pos.data_ptr(), out.data_ptr(),
         b, kh, G, hd, page, n_pages, -1 if window is None else int(window),

@@ -3,8 +3,9 @@ and the one dtype cast the server does at load.
 
 ``params_from_jax`` takes the JAX params as a tree of numpy arrays (e.g.
 ``jax.device_get(params)``; the port itself never imports JAX) and copies
-it leaf by leaf: the same nested keys, the same stacked ``blocks`` leading
-layer axis, the same layouts.
+it leaf by leaf: the same nested keys and lists (the CNN's ``{"conv":
+[...], "fc": [...]}``), the same stacked ``blocks`` leading layer axis,
+the same layouts and dtypes (fp32 stays fp32, bf16 stays bf16).
 
 ``to_compute_dtype`` casts every weight that the layers cast to the
 compute dtype at each use (projections, biases, MLP, embedding) once, so
@@ -27,11 +28,15 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def params_from_jax(tree, cfg: ArchConfig, device="cpu"):
-    """The JAX param tree (numpy leaves) as the port's params on ``device``."""
-    del cfg  # the layout is the same for every config the port runs
+def params_from_jax(tree, cfg=None, device="cpu"):
+    """The JAX param tree (numpy leaves) as the port's params on ``device``
+    (``cfg``, an ``ArchConfig`` or ``CNNConfig``, is not needed: the layout
+    is the same for every config the port runs)."""
+    del cfg
     if isinstance(tree, dict):
         return {k: params_from_jax(v, None, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [params_from_jax(v, None, device) for v in tree]
     return _tensor(tree, device)
 
 

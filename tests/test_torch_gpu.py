@@ -1,5 +1,6 @@
 """The port on the card: CUDA kernels against their plain versions, and the
-kernel arms of the server against its plain arm.
+kernel arms of the server and of the training engine against their plain
+arms.
 
 Every test here needs a CUDA card and carries the ``gpu`` marker; without
 a card each one skips (a skip is not a pass: ``chip_smoke.py`` is the
@@ -10,7 +11,13 @@ card's check). This file imports no JAX, so it runs on the card's machine:
 Tolerances: bf16 ``atol = rtol = 2e-2`` and fp32 ``1e-5`` against the plain
 versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32.
+The fused update is bitwise its plain version (same fp32 order, no FMA
+contraction); the conv kernels sum over K or M in another order than
+cuBLAS: max abs error <= 1e-4 * max|want| and relative RMS <= 1e-5; the
+lowered residual is bitwise; a training round agrees with the plain arms
+within 1e-4.
 """
+import dataclasses
 import warnings
 
 import numpy as np
@@ -18,6 +25,17 @@ import pytest
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree as T
+from repro_torch.data import pipeline as P
+from repro_torch.engine import Engine
+from repro_torch.kernels.fused_update import ops as fu_ops
+from repro_torch.kernels.fused_update.ref import fused_update_ref
+from repro_torch.kernels.lowering_conv import bwd as lc_bwd
+from repro_torch.kernels.lowering_conv.lowering_conv import lowering_conv_cuda
+from repro_torch.kernels.lowering_conv.ref import lower, lowered_conv_ref
+from repro_torch.models import cnn as C
+from repro_torch.optim.closed_form import grouped_coeffs
+from repro_torch.optim.sgd import init_momentum
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -35,6 +53,7 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; checked on the card by chip_smoke.py")
     torch.backends.cuda.matmul.allow_tf32 = False   # fp32 is compared
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -131,3 +150,92 @@ def test_cuda_gather_ring_fallback_warns_and_notes(card):
         srv2 = ContinuousServer(_cfg(), slots=2, page_size=16, max_seq=64,
                                 attn_impl="cuda_gather", device=card)
     assert srv2.registry.notes == []
+
+
+# ---------------------------------------------------------------------------
+# the CNN-training kernels
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("wdt,vdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("n", [1, 7, 4096, 100003])
+def test_fused_update_kernel_is_bitwise_the_plain_version(card, wdt, vdt, n):
+    g = torch.Generator(device=card).manual_seed(n)
+    w = torch.randn(n, generator=g, device=card).to(wdt)
+    v = torch.randn(n, generator=g, device=card).to(vdt)
+    gs = torch.randn(4, n, generator=g, device=card)
+    c = grouped_coeffs(4, lr=0.05, momentum=0.9, weight_decay=1e-4)
+    before = fu_ops.fused_update_cuda.launches
+    got = fu_ops.fused_update_cuda(w, v, gs, c)
+    assert fu_ops.fused_update_cuda.launches == before + 1
+    want = fused_update_ref(w, v, gs, c)
+    assert got[0].dtype == wdt and got[1].dtype == vdt
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_fused_update_kernel_rejects_bad_operands(card):
+    w = torch.zeros(8, device=card)
+    with pytest.raises(ValueError, match="groups"):
+        fu_ops.fused_update_cuda(w, w, torch.zeros(65, 8, device=card),
+                                 grouped_coeffs(65, lr=0.1))
+    with pytest.raises(ValueError, match="contiguous"):
+        fu_ops.fused_update_cuda(w, w, torch.zeros(8, 2, device=card).T,
+                                 grouped_coeffs(2, lr=0.1))
+
+
+def _fp32_close(got, want):
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+    rel = ((got - want).norm() / want.norm()).item()
+    assert rel <= 1e-5, rel
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((4, 23, 23, 3), (11, 11, 3, 16), 4),       # conv1-like, K = 363
+    ((3, 13, 13, 24), (5, 5, 24, 70), 1),       # ragged Cout tile
+    ((2, 9, 9, 40), (3, 3, 40, 64), 1),
+    ((2, 12, 12, 8), (3, 3, 8, 16), 2)])        # stride-2 dgrad
+def test_conv_kernels_match_plain(card, x_shape, w_shape, stride):
+    g = torch.Generator(device=card).manual_seed(7)
+    x = torch.randn(x_shape, generator=g, device=card)
+    w = torch.randn(w_shape, generator=g, device=card) * 0.1
+    kh, kw = w_shape[:2]
+    y, low = lowering_conv_cuda(x, w, stride=stride, return_lowered=True)
+    want_low = lower(x, kh, kw, stride)
+    assert torch.equal(low.reshape(want_low.shape), want_low)
+    _fp32_close(y, lowered_conv_ref(x, w, stride))
+    assert torch.equal(lowering_conv_cuda(x, w, stride=stride), y)
+    dy = torch.randn(y.shape, generator=g, device=card)
+    dw = lc_bwd.wgrad_cuda(low, dy, w.shape)
+    _fp32_close(dw, lc_bwd.wgrad_ref(want_low, dy, w.shape))
+    assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w.shape), dw)  # no atomics
+    dx = lc_bwd.dgrad_cuda(dy, w, x.shape, stride=stride)
+    _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x.shape, stride))
+
+
+def test_training_kernel_arms_match_plain_arms(card):
+    """caffenet-smoke, g=2, three rounds: lowering_cuda + the fused-update
+    kernel against lowering + the plain update, and every kernel of the
+    path launched."""
+    base = C.get_cnn_smoke_config("caffenet")
+    params = C.init_params(torch.Generator(device=card).manual_seed(0), base)
+    out = {}
+    for conv, upd in (("lowering", "torch"), ("lowering_cuda", "cuda")):
+        cfg = dataclasses.replace(base, conv_impl=conv)
+        eng = Engine(lambda p, b, cfg=cfg: C.loss_fn(p, b, cfg),
+                     num_groups=2, lr=0.05, momentum=0.3, update_impl=upd,
+                     head_filter=C.head_filter, device=card)
+        data = P.SyntheticImages(P.DataConfig(
+            batch_size=8, image_size=cfg.image_size,
+            channels=cfg.in_channels, num_classes=cfg.num_classes))
+        n = lc_bwd.dgrad_cuda.launches
+        out[conv] = eng.run(params, init_momentum(params),
+                            data.batches(3), steps=3)
+        if conv == "lowering_cuda":
+            assert lc_bwd.dgrad_cuda.launches - n == 3 * 2 * 1
+    np.testing.assert_allclose(out["lowering_cuda"][2], out["lowering"][2],
+                               rtol=1e-4, atol=1e-4)
+    for a, b in zip(T.leaves(out["lowering_cuda"][0]),
+                    T.leaves(out["lowering"][0])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -3,6 +3,8 @@
 - every ``repro_torch`` module imports in a fresh interpreter in which
   ``jax`` and ``repro`` cannot be imported;
 - no source of the port (nor ``chip_smoke.py``) imports them;
+- the build finds all six kernel sources, and each wrapper's ctypes
+  signature matches its C entry point;
 - the launcher serves the qwen2-7b smoke config on the CPU;
 - ``chip_smoke.py`` refuses to run without a card.
 """
@@ -66,7 +68,9 @@ def test_no_source_imports_jax_or_repro():
 
 def test_kernel_sources_are_found_by_the_build():
     from repro_torch.kernels import _build
-    assert set(_build.sources()) == {"paged_attention", "flash_attention"}
+    assert set(_build.sources()) == {"paged_attention", "flash_attention",
+                                     "fused_update", "lowering_conv",
+                                     "wgrad", "dgrad"}
     for src in _build.sources().values():
         text = src.read_text()
         assert 'extern "C" int' in text and "cudaGetLastError" in text
@@ -76,21 +80,32 @@ def test_kernel_sources_are_found_by_the_build():
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
 
 
-@pytest.mark.parametrize("name", ["paged_attention", "flash_attention"])
+_WRAPPERS = {   # kernel -> (module of its wrapper, name of its ARGTYPES)
+    "paged_attention": ("paged_attention.ops", "ARGTYPES"),
+    "flash_attention": ("flash_attention.ops", "ARGTYPES"),
+    "fused_update": ("fused_update.ops", "ARGTYPES"),
+    "lowering_conv": ("lowering_conv.lowering_conv", "ARGTYPES"),
+    "wgrad": ("lowering_conv.bwd", "WGRAD_ARGTYPES"),
+    "dgrad": ("lowering_conv.bwd", "DGRAD_ARGTYPES"),
+}
+
+
+@pytest.mark.parametrize("name", list(_WRAPPERS))
 def test_ctypes_signature_matches_the_c_entry_point(name):
     """ctypes passes each argument as its declared type: one mismatch
     cuts a pointer or shifts every later argument."""
     import ctypes
     import importlib
     from repro_torch.kernels import _build
-    ops = importlib.import_module(f"repro_torch.kernels.{name}.ops")
+    module, attr = _WRAPPERS[name]
+    ops = importlib.import_module(f"repro_torch.kernels.{module}")
     text = _build.sources()[name].read_text()
     sig = re.search(rf'extern "C" int {name}_launch\((.*?)\)', text, re.S)
     kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
-             "float": ctypes.c_float}
+             "float": ctypes.c_float, "long long": ctypes.c_longlong}
     params = [" ".join(p.split()[:-1]).replace("const ", "")
               for p in sig.group(1).split(",")]
-    assert [kinds[p] for p in params] == ops.ARGTYPES
+    assert [kinds[p] for p in params] == getattr(ops, attr)
 
 
 def test_launcher_serves_smoke_config_on_cpu():
