@@ -17,7 +17,9 @@ passed over, nothing falls back to the CPU):
    rounds: paged decode at position 0, a page boundary, a full table, a
    wrapped ring, a stale retired row; flash attention causal at 256 (the
    served prefill bucket), 512 and 1024, windowed, ragged, and with per-row
-   query offsets;
+   query offsets, then the bf16 tensor-core kernel's edges (hd 32 and 64,
+   Sk off the 64-key tile, a window that skips leading tiles, Sq = 1 and
+   a chunk at offsets, a window without causal masking);
 4. kernel timings (CUDA events around device work only, L2 flushed before
    each launch) beside the plain version, one PyTorch library call
    computing the same function (timed here only; the port never calls
@@ -33,14 +35,19 @@ passed over, nothing falls back to the CPU):
    and ``"torch"`` agree within ``1e-4`` on the per-step logits of
    ``paged_decode_step`` and, for the server's parallel prefill, on the
    ``transformer.forward`` logits and on the pages
-   ``ContinuousServer._parallel_prefill`` writes;
+   ``ContinuousServer._parallel_prefill`` writes; then in bf16 (the path
+   serving runs, through the tensor-core flash kernel) the
+   ``transformer.forward`` logits of both arms against the fp32 forward of
+   the same weights: the kernel arm no further from it than the plain arm
+   (which rounds its scores to bf16) and within relative RMS ``2e-2``;
 7. the CNN-training kernels (phases 3 and 4 also hold these): the fused
    update bitwise equal to its plain version (fp32 and bf16, CaffeNet's
    largest leaf and the slab of all 16 leaves, g = 4); the lowering-conv
    forward (its lowered residual bitwise), wgrad and dgrad at the five
-   full-width CaffeNet layer shapes at group batch 64, plus a stride-2
-   dgrad, within ``1e-4 * max|want|`` abs and ``1e-5`` relative RMS (fp32
-   sums over K <= 3456 or M <= 193,600 in another order than cuBLAS);
+   full-width CaffeNet layer shapes at group batch 64, plus two ragged
+   dgrad tiles and a stride-2 dgrad, within ``1e-4 * max|want|`` abs and
+   ``1e-5`` relative RMS (fp32 sums over K <= 3456 or M <= 193,600 in
+   another order than cuBLAS; dgrad in 3xTF32 on tensor cores);
    timed beside the plain versions and ``F.conv2d`` /
    ``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` (channels-last fp32,
    TF32 off; timed here only);
@@ -77,6 +84,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM device memory
 BF16_FLOP_S = 989e12           # H100 SXM dense bf16 tensor-core peak
 FP32_FLOP_S = 67e12            # H100 SXM fp32, outside the tensor cores
+TF32_FLOP_S = 495e12           # H100 SXM dense TF32 tensor-core peak
 TOL = {"bfloat16": 2e-2, "float32": 1e-5}
 BF16_REL_RMS = 1e-2            # ~2.5 bf16 ulps of relative error, on average
 
@@ -268,6 +276,36 @@ def phase_check(torch) -> dict:
             v = torch.randn(B, sk, K, hd, generator=g, device=dev).to(dtype)
             got = fa.flash_attention(q, k, v, causal=True, **kw)
             want = flash_attention_ref(q, k, v, causal=True, **kw)
+            e = compare(torch, f"flash_attention {label} {dn}", got, want, dn)
+            if dtype is torch.bfloat16:
+                errs["flash_attention"] = max(errs["flash_attention"], e)
+            del q, k, v, got, want
+        # the bf16 tensor-core kernel's edges (fp32 runs the same cases on
+        # its CUDA-core kernel): head dims 32 and 64, Sk not a multiple of
+        # the 64-key tile, a window that skips leading tiles, Sq = 1 and a
+        # short chunk at per-row offsets, a one-sided window without causal
+        for label, (b, h, kv, d), sq, sk, kw in (
+                ("hd32 causal 256", (2, 8, 2, 32), 256, 256, {}),
+                ("hd64 causal 300", (2, 8, 2, 64), 300, 300, {}),
+                ("hd64 q_offsets chunk 100x300", (2, 8, 2, 64), 100, 300,
+                 {"q_offsets": (0, 200)}),
+                ("hd32 q_offsets decode 1x777", (4, 8, 4, 32), 1, 777,
+                 {"q_offsets": (0, 776)}),
+                ("window 64 at 1024", (B, H, K, hd), 1024, 1024,
+                 {"window": 64}),
+                ("non-causal window 100 at 333", (2, 8, 2, hd), 333, 333,
+                 {"causal": False, "window": 100})):
+            if "q_offsets" in kw:
+                lo, hi = kw["q_offsets"]
+                kw = dict(kw, q_offsets=torch.randint(
+                    lo, hi + 1, (b,), generator=g, device=dev,
+                    dtype=torch.int32))
+            kw = {"causal": True, **kw}
+            q = torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+            k = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, sk, kv, d, generator=g, device=dev).to(dtype)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
             e = compare(torch, f"flash_attention {label} {dn}", got, want, dn)
             if dtype is torch.bfloat16:
                 errs["flash_attention"] = max(errs["flash_attention"], e)
@@ -506,6 +544,7 @@ def _close(torch, what, got, want, tol=1e-4) -> float:
 
 def phase_parity(torch) -> None:
     from repro_torch.configs import get_config
+    from repro_torch.core import tree
     from repro_torch.models import transformer as T
     from repro_torch.serving import (ContinuousServer, PageAllocator,
                                      PagedCacheSpec, init_pages,
@@ -572,6 +611,38 @@ def phase_parity(torch) -> None:
         f"prompts {plens} (bucket 256): cuda vs torch forward logits "
         f"max_abs_err={e_logits:.3e}, written pages max_abs_err="
         f"{e_pages:.3e} (tol 1e-4) ok")
+    del params, written
+
+    # bf16, as serving runs it: the fp32 checks above reach only the
+    # CUDA-core kernel; this one reaches the tensor-core kernel. Both bf16
+    # arms are held to the fp32 forward of the same weights: the plain
+    # arm rounds its attention scores to bf16 (the kernel keeps them in
+    # fp32), so the two arms differ by about as much as either differs
+    # from fp32, and the kernel arm must be no further from it.
+    cfg16 = dataclasses.replace(get_config("qwen2-7b"), num_layers=2)
+    params16 = T.init_params(g, cfg16, weight_dtype=torch.bfloat16)
+    params32 = tree.tree_map(lambda t: t.float(), params16)
+    truth = T.forward(params32, {"tokens": prompts}, cfg, attn_impl="torch")[0]
+    del params32
+    logits = {impl: T.forward(params16, {"tokens": prompts}, cfg16,
+                              attn_impl=impl)[0].float()
+              for impl in ("torch", "cuda")}
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    if not torch.isfinite(logits["cuda"]).all():
+        fail("slice parity bf16 forward logits: not finite")
+    err = {impl: rel(x, truth) for impl, x in logits.items()}
+    cross = rel(logits["cuda"], logits["torch"])
+    if err["cuda"] > err["torch"] or err["cuda"] > 2 * BF16_REL_RMS:
+        fail(f"slice parity bf16 forward logits: relative RMS error against "
+             f"fp32 {err['cuda']:.3e} (cuda) vs {err['torch']:.3e} (torch); "
+             f"the cuda arm must be no further and within {2 * BF16_REL_RMS}")
+    log(f"[parity] qwen2-7b widths, 2 layers, bf16, forward of 8 x 256 "
+        f"tokens: logits rel_rms against the fp32 forward cuda="
+        f"{err['cuda']:.3e} torch={err['torch']:.3e} (cuda must be <= torch "
+        f"and <= {2 * BF16_REL_RMS}); cuda vs torch rel_rms={cross:.3e} ok")
 
 
 # ---------------------------------------------------------------------------
@@ -653,13 +724,19 @@ def phase_check_train(torch) -> dict:
                 torch, f"dgrad {tag}", bwd.dgrad_cuda(dy, w, xs, stride=s),
                 bwd.dgrad_ref(dy, w, xs, s)))
         del x, w, low, dy
-    xs, ws, s = (CNN_GROUP_BATCH, 27, 27, 96), (5, 5, 96, 256), 2
-    w = torch.randn(ws, generator=g, device=dev) * 0.05
-    dy = torch.randn((xs[0], 12, 12, 256), generator=g, device=dev)
-    errs["dgrad"] = max(errs["dgrad"], compare_fp32(
-        torch, f"dgrad stride 2 x{xs} w{ws}",
-        bwd.dgrad_cuda(dy, w, xs, stride=s), bwd.dgrad_ref(dy, w, xs, s)))
-    del w, dy
+    for label, xs, ws, s in (
+            # ragged tiles: Cin 70 and 130 fill no tile, Cout 50 is no
+            # multiple of 4 (4-byte copies), 36 no multiple of the stage
+            ("ragged", (CNN_GROUP_BATCH, 13, 13, 70), (3, 3, 70, 50), 1),
+            ("ragged", (CNN_GROUP_BATCH, 15, 15, 130), (3, 3, 130, 36), 1),
+            ("stride 2", (CNN_GROUP_BATCH, 27, 27, 96), (5, 5, 96, 256), 2)):
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        ho = (xs[1] - ws[0]) // s + 1
+        dy = torch.randn((xs[0], ho, ho, ws[3]), generator=g, device=dev)
+        errs["dgrad"] = max(errs["dgrad"], compare_fp32(
+            torch, f"dgrad {label} x{xs} w{ws} s{s}",
+            bwd.dgrad_cuda(dy, w, xs, stride=s), bwd.dgrad_ref(dy, w, xs, s)))
+        del w, dy
     torch.cuda.empty_cache()
     return errs
 
@@ -669,7 +746,9 @@ def phase_time_train(torch) -> dict:
     the 16 CaffeNet leaves of one round (g = 4), the conv kernels summed
     over the five layers of one group's calls (group batch 64; dgrad over
     layers 2-5), each beside its plain version, one PyTorch library call
-    and its bound (fp32 CUDA-core peak, HBM)."""
+    and its bound (HBM, and the product form's 2*M*K*Cout flops at the
+    kernel's rate: fp32 CUDA cores for B2 and B3, three TF32 tensor-core
+    products a flop for B4's 3xTF32)."""
     import torch.nn.functional as F
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
@@ -711,15 +790,24 @@ def phase_time_train(torch) -> dict:
 
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
                    flops=0.0) for k in ("lowering_conv", "wgrad", "dgrad")}
+    rate = {"lowering_conv": FP32_FLOP_S, "wgrad": FP32_FLOP_S,
+            "dgrad": TF32_FLOP_S / 3}
+
+    def bounds(name, nbytes, flops):
+        b_ms, b_by = bound(nbytes, flops, rate[name])
+        text = f"bound_ms={b_ms:.5f} ({b_by})"
+        if name == "dgrad":
+            text += (f" [3xTF32 at {TF32_FLOP_S / 1e12:.0f} TFLOP/s; fp32 "
+                     f"CUDA cores: {bound(nbytes, flops, FP32_FLOP_S)[0]:.5f}]")
+        return b_ms, b_by, text
 
     def add(name, tag, ms, plain, lib, nbytes, flops):
         t = tot[name]
         for k, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                      ("nbytes", nbytes), ("flops", flops)):
             t[k] += v
-        b_ms, b_by = bound(nbytes, flops, FP32_FLOP_S)
         log(f"[time] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"library_ms={lib:.4f} {bounds(name, nbytes, flops)[2]} "
             f"achieved={flops / ms / 1e9:.2f} TFLOP/s")
 
     for i, (xs, ws, s) in enumerate(caffenet_layers()):
@@ -760,16 +848,16 @@ def phase_time_train(torch) -> dict:
                         flush=flush),
                 cuda_ms(torch, lambda: torch.nn.grad.conv2d_input(
                     xc.shape, wc, dyc, stride=s), iters=10, flush=flush),
-                4.0 * (M * cout + K * cout + x.numel()), gemm + M * K)
+                4.0 * (M * cout + K * cout + x.numel()), gemm)
         del x, w, y, low, dy, xc, wc, dyc, wm
     for name, t in tot.items():
-        b_ms, b_by = bound(t["nbytes"], t["flops"], FP32_FLOP_S)
+        b_ms, b_by, text = bounds(name, t["nbytes"], t["flops"])
         out[name] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
                          library_ms=t["library_ms"], bound_ms=b_ms,
                          bound_by=b_by)
         log(f"[time] {name} summed over one group's layers: "
             f"kernel_ms={t['ms']:.4f} plain_ms={t['plain_ms']:.4f} "
-            f"library_ms={t['library_ms']:.4f} bound_ms={b_ms:.5f} ({b_by}) "
+            f"library_ms={t['library_ms']:.4f} {text} "
             f"achieved={t['flops'] / t['ms'] / 1e9:.2f} TFLOP/s")
     del flush
     torch.cuda.empty_cache()

@@ -1,8 +1,8 @@
-"""Backward pass of the lowering conv as batched GEMMs (paper §III applied
-to backprop; the JAX package's ``kernels/lowering_conv/bwd.py``).
+"""Backward pass of the lowering conv (paper §III applied to backprop; the
+JAX package's ``kernels/lowering_conv/bwd.py``).
 
-Both gradients are GEMMs over the *same* lowered patch matrix the forward
-already built:
+The plain versions are GEMMs over the *same* lowered patch matrix the
+forward already built:
 
   wgrad   dW_hat = lowered(x)^T @ dY_hat          one (K, M) x (M, Cout) GEMM
   dgrad   dCols  = dY_hat @ K_hat^T               one (M, Cout) x (Cout, K) GEMM
@@ -12,10 +12,10 @@ already built:
 Plain versions (``wgrad_ref``, ``col2im_ref``, ``dgrad_ref``: the JAX
 ``*_xla`` forms) and the wrappers of the two kernels: ``wgrad_cuda``
 (``csrc/wgrad.cu``: split-M partial products, then a fixed-order sum) and
-``dgrad_cuda`` (``csrc/dgrad.cu``: the product into an fp32 scratch, then
-col2im in gather form). A CUDA tensor launches the kernel (or raises); a
-CPU tensor takes the plain version. Each wrapper call adds one to its
-``launches``.
+``dgrad_cuda`` (``csrc/dgrad.cu``: dX as one implicit GEMM over the taps,
+dY gathered on the fly, 3xTF32 on tensor cores; no dCols, no col2im pass).
+A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
+version. Each wrapper call adds one to its ``launches``.
 """
 from __future__ import annotations
 
@@ -32,7 +32,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``wgrad_launch``'s C signature, in order
 WGRAD_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
 #: ``dgrad_launch``'s C signature, in order
-DGRAD_ARGTYPES = [_P] * 4 + [_I] * 9 + [_P]
+DGRAD_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
+DGRAD_BLOCK_N = (64, 96)       # dgrad tile widths in input channels
 
 WGRAD_MAX_SLICE_ROWS = 2048    # rows one block sums in order (fp32 error)
 WGRAD_TARGET_BLOCKS = 4 * 132  # four blocks per SM of an H100
@@ -133,10 +134,18 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
 wgrad_cuda.launches = 0
 
 
+def dgrad_block_n(cin: int) -> int:
+    """The dgrad tile's width in input channels: the one of
+    ``DGRAD_BLOCK_N`` that pads Cin least, the wider on a tie (conv2's 96
+    channels fill one tile; 384 takes four tiles of 96)."""
+    return min(DGRAD_BLOCK_N, key=lambda n: (math.ceil(cin / n) * n, -n))
+
+
 def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
                stride: int = 1) -> torch.Tensor:
     """dy: (B, Ho, Wo, Cout); w: (kh, kw, Cin, Cout). Returns dX of
-    ``x_shape`` (B, H, W, Cin) in fp32."""
+    ``x_shape`` (B, H, W, Cin) in fp32, written once by the kernel (no
+    scratch)."""
     b, h, wd, cin = x_shape
     kh, kw, cin_w, cout = w.shape
     ho, wo = out_hw(h, wd, kh, kw, stride)
@@ -146,12 +155,10 @@ def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
     if dy.device.type != "cuda":
         return dgrad_ref(dy, w, x_shape, stride)
     check_operands(dy=dy, w=w)
-    dcols = torch.empty((b * ho * wo, kh * kw * cin), dtype=torch.float32,
-                        device=dy.device)
     dx = torch.empty(tuple(x_shape), dtype=torch.float32, device=dy.device)
     err = _build.launcher("dgrad", DGRAD_ARGTYPES)(
-        dy.data_ptr(), w.data_ptr(), dcols.data_ptr(), dx.data_ptr(), b, h,
-        wd, cin, kh, kw, stride, cout, dy.device.index or 0,
+        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, h, wd, cin, kh, kw,
+        stride, cout, dgrad_block_n(cin), dy.device.index or 0,
         torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(err, "dgrad")
     dgrad_cuda.launches += 1

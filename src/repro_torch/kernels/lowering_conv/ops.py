@@ -8,6 +8,8 @@ forward built (``bwd.py``):
 
   wgrad = lowered(x)^T @ dy        reusing the forward's lowered residual
   dgrad = dy @ K_hat^T, col2im     one GEMM + the lifting phase transposed
+                                   (the dgrad kernel computes the same sum
+                                   as one implicit GEMM over the taps)
 
 The forward saves the lowered residual and ``w`` (as the JAX
 ``_lc_xla_fwd`` / ``_lc_pallas_fwd`` do) whenever a gradient is wanted.

@@ -13,9 +13,10 @@ versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32.
 The fused update is bitwise its plain version (same fp32 order, no FMA
 contraction); the conv kernels sum over K or M in another order than
-cuBLAS: max abs error <= 1e-4 * max|want| and relative RMS <= 1e-5; the
-lowered residual is bitwise; a training round agrees with the plain arms
-within 1e-4.
+cuBLAS (dgrad in 3xTF32 on tensor cores): max abs error <= 1e-4 *
+max|want| and relative RMS <= 1e-5; the lowered residual is bitwise; a
+training round agrees with the plain arms within 1e-4. The bf16 flash
+kernel's edge cases also hold a relative RMS error <= 1e-2.
 """
 import dataclasses
 import warnings
@@ -107,6 +108,34 @@ def test_flash_kernel_matches_plain(card, dtype, tol):
         want = flash_attention_ref(q, k, v, **kw)
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("case", [
+    # (Sq, Sk, kwargs): Sk not a multiple of the 64-key tile; a window that
+    # skips leading tiles; Sq = 1 and a short chunk at per-row offsets
+    (150, 150, {}),
+    (300, 300, {"window": 70}),
+    (1, 333, {"q_offsets": (100, 332), "window": 64}),
+    (40, 250, {"q_offsets": (0, 210)})],
+    ids=["ragged-sk", "window-skips", "decode-offsets", "chunk-offsets"])
+def test_flash_bf16_tensor_core_kernel_edges(card, hd, case):
+    sq, sk, kw = case
+    g = torch.Generator(device=card).manual_seed(hd + sq)
+    b, h, kh = 3, 8, 2
+    if "q_offsets" in kw:
+        lo, hi = kw["q_offsets"]
+        kw = dict(kw, q_offsets=torch.randint(lo, hi + 1, (b,), generator=g,
+                                              device=card, dtype=torch.int32))
+    q = torch.randn(b, sq, h, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(b, sk, kh, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(b, sk, kh, hd, generator=g, device=card).bfloat16()
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, **kw).float()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=True, **kw).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
 def _cfg(window=None):
@@ -212,6 +241,29 @@ def test_conv_kernels_match_plain(card, x_shape, w_shape, stride):
     assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w.shape), dw)  # no atomics
     dx = lc_bwd.dgrad_cuda(dy, w, x.shape, stride=stride)
     _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x.shape, stride))
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((8, 27, 27, 96), (5, 5, 96, 256), 1),      # CaffeNet conv2
+    ((8, 13, 13, 256), (3, 3, 256, 384), 1),    # conv3
+    ((8, 13, 13, 384), (3, 3, 384, 384), 1),    # conv4
+    ((8, 13, 13, 384), (3, 3, 384, 256), 1),    # conv5
+    ((8, 15, 15, 130), (3, 3, 130, 36), 1),     # ragged tile and stage
+    ((8, 13, 13, 70), (3, 3, 70, 50), 1),       # Cout % 4 != 0
+    ((8, 27, 27, 96), (5, 5, 96, 256), 2)])     # stride 2
+def test_dgrad_3xtf32_kernel_holds_fp32_limits(card, x_shape, w_shape,
+                                              stride):
+    g = torch.Generator(device=card).manual_seed(w_shape[3])
+    kh = w_shape[0]
+    ho = (x_shape[1] - kh) // stride + 1
+    w = torch.randn(w_shape, generator=g, device=card) * 0.05
+    dy = torch.randn((x_shape[0], ho, ho, w_shape[3]), generator=g,
+                     device=card)
+    before = lc_bwd.dgrad_cuda.launches
+    dx = lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride)
+    assert lc_bwd.dgrad_cuda.launches == before + 1
+    _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x_shape, stride))
+    assert torch.equal(lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride), dx)
 
 
 def test_training_kernel_arms_match_plain_arms(card):
