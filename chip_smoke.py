@@ -15,7 +15,10 @@ passed over, nothing falls back to the CPU):
    magnitude cannot pass on the absolute term) and fp32 (``1e-5``) — they
    differ only in summation order and, in bf16, in where the plain version
    rounds: paged decode at position 0, a page boundary, a full table, a
-   wrapped ring, a stale retired row; flash attention causal at 256 (the
+   wrapped ring, a stale retired row, every row at a full table (linear
+   and wrapped ring), and 64-slot pages whose short rows leave whole splits
+   masked (the kernel splits each row's keys over several blocks, checked
+   for the same bits on a second call); flash attention causal at 256 (the
    served prefill bucket), 512 and 1024, windowed, ragged, and with per-row
    query offsets, then the bf16 tensor-core kernel's edges (hd 32 and 64,
    Sk off the 64-key tile, a window that skips leading tiles, Sq = 1 and
@@ -23,7 +26,8 @@ passed over, nothing falls back to the CPU):
 4. kernel timings (CUDA events around device work only, L2 flushed before
    each launch) beside the plain version, one PyTorch library call
    computing the same function (timed here only; the port never calls
-   it), and the card's bound;
+   it), and the card's bound; paged decode also with every row at a full
+   table;
 5. the slice at full width: ``ContinuousServer`` on qwen2-7b (28 layers,
    d_model 3584, bf16 weights made from a seed) with ``attn_impl="cuda"``
    serves Poisson requests twice — scan prefill, then parallel prefill —
@@ -47,7 +51,8 @@ passed over, nothing falls back to the CPU):
    full-width CaffeNet layer shapes at group batch 64, plus two ragged
    dgrad tiles and a stride-2 dgrad, within ``1e-4 * max|want|`` abs and
    ``1e-5`` relative RMS (fp32 sums over K <= 3456 or M <= 193,600 in
-   another order than cuBLAS; dgrad in 3xTF32 on tensor cores);
+   another order than cuBLAS; the forward and dgrad in 3xTF32 on tensor
+   cores);
    timed beside the plain versions and ``F.conv2d`` /
    ``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` (channels-last fp32,
    TF32 off; timed here only);
@@ -209,11 +214,14 @@ def phase_build() -> None:
         + ", ".join(p.name for p in libs.values()))
 
 
-def paged_inputs(torch, dtype, pos, *, stale=(), ring=False, seed=0):
+def paged_inputs(torch, dtype, pos, *, stale=(), ring=False, seed=0,
+                 **shape):
     """Pools, a page table (each row its own pages; columns past a linear
     row's live page point at scratch page 0, as the allocator leaves them)
-    and positions at the serving path's shapes."""
-    B, K, G, hd, page, n = (PAGED[k] for k in
+    and positions at the serving path's shapes (``shape`` overrides
+    ``PAGED``'s entries)."""
+    shape = {**PAGED, **shape}
+    B, K, G, hd, page, n = (shape[k] for k in
                             ("B", "K", "G", "hd", "page", "n_pages"))
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -248,12 +256,27 @@ def phase_check(torch) -> dict:
             # wrapped ring rows (pos >= W) and a stale retired row 7
             ("ring", dict(pos=[0, 15, W - 1, W, 1500, 2 * W - 1, 3000, 900],
                           stale=(7,), ring=True), W),
+            # every row at a full table: all splits hold 8 tiles
+            ("full table", dict(pos=[W - 1 - 3 * b for b in range(8)]),
+             None),
+            ("full table ring", dict(pos=[W + 37 * b for b in range(8)],
+                                     ring=True), W),
+            # 64-slot pages: a row at pos 5 has 4 live tiles, 3 of them
+            # masked, each a split of its own (weight exp(-1e30 - M) = 0)
+            ("masked splits", dict(pos=[5, 70, 0, 200, 63, 64, 130, 1000],
+                                   page=64, n_pages=16), None),
+            ("masked splits ring", dict(pos=[5, 70, 0, 200, 63, 1500, 130,
+                                             1000], ring=True, page=64,
+                                        n_pages=16), W),
         ]
         for label, kw, window in cases:
             args = paged_inputs(torch, dtype, **kw)
             got = pa.paged_attention(*args, window=window)
             want = paged_attention_ref(*args, window=window)
             e = compare(torch, f"paged_attention {label} {dn}", got, want, dn)
+            if not torch.equal(pa.paged_attention(*args, window=window), got):
+                fail(f"paged_attention {label} {dn}: a second call gave "
+                     "other bits (the splits must combine in a fixed order)")
             if dtype is torch.bfloat16:
                 errs["paged_attention"] = max(errs["paged_attention"], e)
 
@@ -348,8 +371,28 @@ def phase_time(torch) -> dict:
     out["paged_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                   bound_ms=b_ms, bound_by=b_by)
     log(f"[time] paged_attention bf16 B={B} K={K} G={G} hd={hd} page={page} "
-        f"live_tokens={tokens}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-        f"library_ms={lib:.4f} (SDPA enable_gqa over the {W}-slot gathered "
+        f"live_tokens={tokens} splits={pa.paged_splits(B, K, n, page)}: "
+        f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA "
+        f"enable_gqa over the {W}-slot gathered copy) bound_ms={b_ms:.5f} "
+        f"({b_by})")
+    del q, kp, vp, ck, cv
+
+    # paged decode with every row at a full table (the longest page walk)
+    pos = [W - 1 - 3 * b for b in range(B)]
+    q, kp, vp, table, posd = paged_inputs(torch, torch.bfloat16, pos, seed=5)
+    ck = kp[table.long()].reshape(B, W, K, hd).transpose(1, 2).contiguous()
+    cv = vp[table.long()].reshape(B, W, K, hd).transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    mask = valid_mask(posd, W, None)[:, None, None, :].contiguous()
+    tokens = sum(p + 1 for p in pos)
+    ms = cuda_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, posd),
+                 iters=50, flush=flush)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, ck, cv, attn_mask=mask, enable_gqa=True), iters=50, flush=flush)
+    b_ms, b_by = bound(2 * tokens * K * hd * 2 + 2 * q.numel() * 2
+                       + table.numel() * 4 + B * 4, 4 * G * K * hd * tokens)
+    log(f"[time] paged_attention bf16 full table B={B} live_tokens={tokens}: "
+        f"kernel_ms={ms:.4f} library_ms={lib:.4f} (SDPA enable_gqa, gathered "
         f"copy) bound_ms={b_ms:.5f} ({b_by})")
     del q, kp, vp, ck, cv
 
@@ -438,6 +481,16 @@ def _drive(torch, srv, reqs, mode: str) -> dict:
     return {"rep": rep, "paged": n_pa, "flash": n_fa}
 
 
+def log_port_kernels(kernels, names) -> None:
+    """The profile's rows of the port's own kernels, by name, whether or
+    not they are among the largest (the split kernels run beside a combine
+    pass of their own)."""
+    for ms, n, name in kernels:
+        if any(k in name for k in names):
+            log(f"[profile]   port kernel {ms:8.3f} ms  x{n:<6.0f} "
+                f"{name[:100]}")
+
+
 def phase_profile(torch, srv, steps: int = 5) -> None:
     """Full-width decode steps (8 active slots at ~200-token contexts):
     wall time per step on the host clock (no profiler), device busy time
@@ -481,6 +534,8 @@ def phase_profile(torch, srv, steps: int = 5) -> None:
         f"{sum(k[1] for k in kernels):.0f} kernels a step")
     for ms, n, name in kernels[:8]:
         log(f"[profile]   {ms:7.3f} ms  x{n:<6.0f} {name[:80]}")
+    log_port_kernels(kernels, ("paged_split", "paged_combine",
+                               "flash_fwd"))
     for s in range(S):
         srv.alloc.release(s)
 
@@ -747,8 +802,8 @@ def phase_time_train(torch) -> dict:
     over the five layers of one group's calls (group batch 64; dgrad over
     layers 2-5), each beside its plain version, one PyTorch library call
     and its bound (HBM, and the product form's 2*M*K*Cout flops at the
-    kernel's rate: fp32 CUDA cores for B2 and B3, three TF32 tensor-core
-    products a flop for B4's 3xTF32)."""
+    kernel's rate: fp32 CUDA cores for B3, three TF32 tensor-core products
+    a flop for B2's and B4's 3xTF32)."""
     import torch.nn.functional as F
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
@@ -790,13 +845,13 @@ def phase_time_train(torch) -> dict:
 
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
                    flops=0.0) for k in ("lowering_conv", "wgrad", "dgrad")}
-    rate = {"lowering_conv": FP32_FLOP_S, "wgrad": FP32_FLOP_S,
+    rate = {"lowering_conv": TF32_FLOP_S / 3, "wgrad": FP32_FLOP_S,
             "dgrad": TF32_FLOP_S / 3}
 
     def bounds(name, nbytes, flops):
         b_ms, b_by = bound(nbytes, flops, rate[name])
         text = f"bound_ms={b_ms:.5f} ({b_by})"
-        if name == "dgrad":
+        if rate[name] != FP32_FLOP_S:
             text += (f" [3xTF32 at {TF32_FLOP_S / 1e12:.0f} TFLOP/s; fp32 "
                      f"CUDA cores: {bound(nbytes, flops, FP32_FLOP_S)[0]:.5f}]")
         return b_ms, b_by, text
@@ -934,6 +989,8 @@ def phase_train_profile(torch, engine, params, mom, batch) -> None:
         f"{1 - busy / wall_ms:.3f}, {sum(k[1] for k in kernels)} kernels")
     for ms, n, name in kernels[:10]:
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:80]}")
+    log_port_kernels(kernels, ("lowering_conv_kernel", "wgrad", "dgrad",
+                               "fused_update"))
 
 
 def phase_train(torch) -> dict:

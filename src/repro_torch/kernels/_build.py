@@ -4,9 +4,10 @@ Every ``kernels/<package>/csrc/<name>.cu`` is compiled at first use by
 ``nvcc`` into its own shared library with a plain C interface, which
 ``ctypes`` loads (no PyTorch headers, so a build takes seconds, not
 minutes). Libraries go to ``build/repro_torch/`` at the repository root,
-named by a hash of the source, the headers beside it and the flags, so a
-changed source is rebuilt and an unchanged one is not. All stale sources are compiled at
-once, one ``nvcc`` process each.
+named by a hash of the source, the headers beside it and in
+``kernels/common/``, and the flags, so a changed source is rebuilt and an
+unchanged one is not. All stale sources are compiled at once, one ``nvcc``
+process each.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; the Python wrappers raise if that is not 0.
@@ -22,6 +23,7 @@ from pathlib import Path
 from typing import Dict
 
 KERNELS_DIR = Path(__file__).resolve().parent
+COMMON_DIR = KERNELS_DIR / "common"   # headers every kernel may include
 BUILD_DIR = KERNELS_DIR.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -47,10 +49,12 @@ def nvcc() -> str:
 
 
 def target(src: Path) -> Path:
-    """The library a source builds into, named by the content of the source
-    and of the headers beside it (``csrc/*.cuh``) and by the flags."""
+    """The library a source builds into, named by the content of the source,
+    of the headers beside it (``csrc/*.cuh``) and of the shared ones
+    (``kernels/common/*.cuh``), and by the flags."""
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    for hdr in sorted(src.parent.glob("*.cuh")):
+    for hdr in (sorted(src.parent.glob("*.cuh"))
+                + sorted(COMMON_DIR.glob("*.cuh"))):
         h.update(hdr.read_bytes())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

@@ -46,8 +46,7 @@
 // output element and stage. With Cout not a multiple of 4 the copies fall
 // back to 4 bytes an element.
 // Stride > 1 takes the same path, paying for the taps that miss the lattice.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "../../common/ptx.cuh"
 
 namespace {
 
@@ -62,59 +61,7 @@ constexpr int smem_bytes() {
   return kStages * (kBM + BN) * kRS * static_cast<int>(sizeof(float));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Async copy of VEC floats global -> shared, zero-filled when !pred.
-template <int VEC>
-__device__ __forceinline__ void cp_async(uint32_t dst, const float* src, bool pred) {
-  const int n = pred ? 4 * VEC : 0;
-  if constexpr (VEC == 4)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// x = big + small: big the nearest TF32 (ties away, as cvt.rna.tf32.f32)
-// by integer ops, small = x - big exactly; the mma reads only the top 10
-// mantissa bits of small's fp32 pattern (truncation), an error below
-// 2^-22 of x.
-__device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
-  big = (x + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// d = a * b, the same product from a zero accumulator.
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f),
-        "f"(0.f), "f"(0.f));
-}
+using namespace ptx;
 
 template <int BN, int VEC>
 __global__ void __launch_bounds__(kThreads)

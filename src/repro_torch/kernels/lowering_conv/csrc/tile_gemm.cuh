@@ -1,15 +1,13 @@
-// A 64 x 64 fp32 tile product on CUDA cores, shared by the lowering-conv
-// forward (lowering_conv.cu) and wgrad (wgrad.cu) kernels; dgrad.cu runs
-// its own implicit GEMM on TF32 tensor cores.
+// A 64 x 64 fp32 tile product on CUDA cores, used by the wgrad kernel
+// (wgrad.cu); the lowering-conv forward (lowering_conv.cu) and dgrad.cu run
+// their own implicit GEMMs on TF32 tensor cores.
 //
 // One block of 256 threads owns a 64 x 64 tile of C = A @ B. The reduction
 // runs in stages of 16: the caller's loader fills the shared tiles a[q][r]
 // (A, transposed) and b[q][n] (B) for one stage, zero past every edge, and
 // each thread then accumulates a 4 x 4 sub-tile of C in registers from two
-// 16-byte shared-memory reads per step. The loader is where the kernels
-// differ: the forward lowers image patches into a[][] on the fly (im2col in
-// shared memory, never in device memory), wgrad reads the lowered residual
-// and dY.
+// 16-byte shared-memory reads per step. The loader is the caller's: wgrad
+// reads the lowered residual and dY.
 #pragma once
 #include <cuda_runtime.h>
 

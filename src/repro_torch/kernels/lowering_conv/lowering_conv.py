@@ -1,11 +1,14 @@
 """The lowering-conv forward kernel's wrapper (``lowering_conv_cuda``) and
 the tile arithmetic the JAX package exposes with it.
 
-``csrc/lowering_conv.cu`` is an implicit GEMM: each block lowers the image
-patches of its 64 output rows into shared memory, 16 columns of the
-(kh*kw*Cin, Cout) kernel matrix at a time, and never writes the lowered
-matrix to device memory except as the backward's residual
-(``return_lowered``). Its tiles are fixed; ``largest_divisor`` and
+``csrc/lowering_conv.cu`` is an implicit GEMM on TF32 tensor cores in
+3xTF32 (fp32 accuracy): each block gathers the image patches of its 64
+output rows into shared memory, 32 columns of the (kh*kw*Cin, Cout) kernel
+matrix at a time through a 3-stage ``cp.async`` ring, and never writes the
+lowered matrix to device memory except as the backward's residual
+(``return_lowered``, copied from the gathered stages). Its tiles are fixed
+(64 rows by 64 or 96 output channels, ``bwd.dgrad_block_n``'s rule, chosen
+in the C entry point); ``largest_divisor`` and
 ``choose_tiles`` are the TPU kernel's (b_p, r_b) tile resolution, kept for
 the callers that report it (the VMEM footprint model ``vmem_bytes`` and the
 tile autotuner wait for a Hopper shared-memory model: ROADMAP).

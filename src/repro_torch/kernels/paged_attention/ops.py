@@ -7,8 +7,12 @@ positions ``(B,)`` int32 — and returns ``(B, 1, H, hd)``. The GQA grouping
 (H = K * G, head ``k * G + g``) matches ``models.layers._grouped_scores``.
 
 A CUDA tensor launches ``csrc/paged_attention.cu`` (or raises); a CPU
-tensor takes the plain version, ``ref.paged_attention_ref``. Every launch
-adds one to ``paged_attention.launches``.
+tensor takes the plain version, ``ref.paged_attention_ref``. The kernel
+splits each row's live keys (tiles of ``KEY_TILE`` slots) over
+``paged_splits`` blocks and adds their fp32 partials in split order in a
+second kernel behind the same entry point; the wrapper allocates that
+scratch and never reads ``pos`` on the host. Every call adds one to
+``paged_attention.launches``.
 """
 from __future__ import annotations
 
@@ -24,11 +28,38 @@ KERNEL = "paged_attention"
 HEAD_DIMS = (32, 64, 128)
 MAX_GROUP = 16
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 48 * 1024
+KEY_TILE = 16                  # slots per key tile (the kernel's kKT)
+SPLIT_TARGET_BLOCKS = 2 * 132  # two blocks per SM of an H100 at a full table
+MAX_SPLITS = 32                # the combine's shared-memory slots
+_SMEM_LIMIT = 232448           # shared memory a block may use on sm_90
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``paged_attention_launch``'s C signature, in order
-ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+ARGTYPES = [_P] * 7 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+
+
+def paged_splits(b: int, kh: int, n_pages: int, page: int) -> int:
+    """Blocks each (row, kv head) is split over: enough that a full table
+    fills the card, each taking an equal share of its key tiles. Depends on
+    the shapes alone (the kernel cuts each row's live tiles by the same
+    count from ``pos``), so a run gives the same bits as the last one."""
+    tiles = math.ceil(n_pages * page / KEY_TILE)
+    want = min(MAX_SPLITS, math.ceil(SPLIT_TARGET_BLOCKS / (b * kh)))
+    per = math.ceil(tiles / want)
+    return math.ceil(tiles / per)
+
+
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory of one split block, as the kernel sizes it.
+    bf16: the q tile and a 2-stage ring of 64 K and 64 V slot rows, padded
+    by 16 bytes (reused for the four warps' states once drained); fp32: 2
+    stages of 16 K and V rows, the q rows, the scores and m / l / alpha."""
+    if dtype == torch.bfloat16:
+        ring = 2 * (KEY_TILE + 2 * 2 * 4 * KEY_TILE) * (hd + 8)
+        merge = 4 * 4 * MAX_GROUP * (hd + 2)
+        return max(ring, merge)
+    return 4 * (4 * KEY_TILE * hd + MAX_GROUP * hd + MAX_GROUP * KEY_TILE
+                + 3 * MAX_GROUP)
 
 
 def _check(q, k_pages, v_pages, table, pos, G: int) -> None:
@@ -56,14 +87,14 @@ def _check(q, k_pages, v_pages, table, pos, G: int) -> None:
         raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
     if G > MAX_GROUP:
         raise ValueError(f"query group {G} > {MAX_GROUP}")
-    page = k_pages.shape[1]
-    smem = (4 * page * hd * q.element_size()
-            + 4 * (G * hd + G * page + 3 * MAX_GROUP) + 4 * table.shape[1])
+    smem = smem_bytes(q.dtype, hd)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"page {page} x group {G} needs {smem} bytes of "
-                         f"shared memory, over {_SMEM_LIMIT}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned (cp.async tiles)")
+        raise ValueError(f"head_dim {hd} needs {smem} bytes of shared "
+                         f"memory, over {_SMEM_LIMIT}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async "
+                             "rows)")
     for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
                     ("table", table), ("pos", pos)):
         if not t.is_contiguous():
@@ -92,12 +123,15 @@ def paged_attention(q, k_pages, v_pages, table, pos, *, window=None):
                                    window=window)
     G = h // kh
     _check(q, k_pages, v_pages, table, pos, G)
+    splits = paged_splits(b, kh, n_pages, page)
     out = torch.empty_like(q)
+    part = torch.empty(b * kh * splits * G * (hd + 2), dtype=torch.float32,
+                       device=q.device)
     err = _build.launcher(KERNEL, ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+        table.data_ptr(), pos.data_ptr(), out.data_ptr(), part.data_ptr(),
         b, kh, G, hd, page, n_pages, -1 if window is None else int(window),
-        1.0 / math.sqrt(hd), DTYPES[q.dtype], q.device.index or 0,
+        splits, 1.0 / math.sqrt(hd), DTYPES[q.dtype], q.device.index or 0,
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, KERNEL)
     paged_attention.launches += 1

@@ -13,10 +13,12 @@ versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32.
 The fused update is bitwise its plain version (same fp32 order, no FMA
 contraction); the conv kernels sum over K or M in another order than
-cuBLAS (dgrad in 3xTF32 on tensor cores): max abs error <= 1e-4 *
-max|want| and relative RMS <= 1e-5; the lowered residual is bitwise; a
-training round agrees with the plain arms within 1e-4. The bf16 flash
-kernel's edge cases also hold a relative RMS error <= 1e-2.
+cuBLAS (the forward and dgrad in 3xTF32 on tensor cores): max abs error
+<= 1e-4 * max|want| and relative RMS <= 1e-5; the lowered residual is
+bitwise; a training round agrees with the plain arms within 1e-4. The bf16
+flash kernel's edge cases and the split paged kernel's bf16 cases also hold
+a relative RMS error <= 1e-2; the split kernels give the same bits on a
+second call.
 """
 import dataclasses
 import warnings
@@ -81,6 +83,45 @@ def test_paged_kernel_matches_plain(card, dtype, tol, window):
     assert pa_ops.paged_attention.launches == before + 1
     want = paged_attention_ref(*args, window=window)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (page, n_pages, pos, window, stale rows), B = 4, K = 2, G = 7: each
+    # row's keys split over several blocks
+    (16, 16, (37, 255, 100, 900), None, (3,)),
+    (64, 4, (5, 70, 255, 400), 256, ()),
+    (16, 16, (255, 254, 253, 252), None, ()),
+    (16, 16, (0, 1, 16, 300), 256, ())],
+    ids=["splits-full-stale", "ring-masked-splits", "full-table",
+         "ring-pos0-edges"])
+def test_paged_split_kernel_matches_plain(card, dtype, tol, case):
+    page, n_pages, pos, window, stale = case
+    B, K, G, hd = 4, 2, 7, 128
+    g = torch.Generator(device=card).manual_seed(page + sum(pos))
+    P = 1 + B * n_pages
+    q = torch.randn(B, 1, K * G, hd, generator=g, device=card).to(dtype)
+    kp = torch.randn(P, page, K, hd, generator=g, device=card).to(dtype)
+    vp = torch.randn(P, page, K, hd, generator=g, device=card).to(dtype)
+    table = (torch.randperm(P - 1, generator=g, device=card) + 1).view(
+        B, n_pages).to(torch.int32)
+    for b, p in enumerate(pos):
+        if window is None:
+            table[b, min(p // page, n_pages - 1) + 1:] = 0
+    for b in stale:
+        table[b] = 0
+    args = (q, kp, vp, table.contiguous(),
+            torch.tensor(pos, dtype=torch.int32, device=card))
+    assert pa_ops.paged_splits(B, K, n_pages, page) > 1
+    before = pa_ops.paged_attention.launches
+    got = pa_ops.paged_attention(*args, window=window)
+    assert pa_ops.paged_attention.launches == before + 1
+    want = paged_attention_ref(*args, window=window)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert ((got.float() - want.float()).norm()
+                / want.float().norm()).item() <= 1e-2
+    assert torch.equal(pa_ops.paged_attention(*args, window=window), got)
 
 
 def test_paged_kernel_rejects_bad_operands(card):
@@ -264,6 +305,28 @@ def test_dgrad_3xtf32_kernel_holds_fp32_limits(card, x_shape, w_shape,
     assert lc_bwd.dgrad_cuda.launches == before + 1
     _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x_shape, stride))
     assert torch.equal(lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride), dx)
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    *C.conv_layer_shapes(C.CAFFENET, 8),        # CaffeNet conv1-5, batch 8
+    ((8, 15, 15, 40), (3, 3, 40, 70), 1),       # ragged stage and Cout tile
+    ((8, 27, 27, 96), (5, 5, 96, 256), 2)],     # stride 2
+    ids=["conv1", "conv2", "conv3", "conv4", "conv5", "ragged", "stride2"])
+def test_lowering_conv_3xtf32_kernel_holds_fp32_limits(card, x_shape,
+                                                      w_shape, stride):
+    g = torch.Generator(device=card).manual_seed(w_shape[3] + stride)
+    x = torch.randn(x_shape, generator=g, device=card)
+    w = torch.randn(w_shape, generator=g, device=card) * 0.05
+    kh, kw = w_shape[:2]
+    before = lowering_conv_cuda.launches
+    y, low = lowering_conv_cuda(x, w, stride=stride, return_lowered=True)
+    assert lowering_conv_cuda.launches == before + 1
+    _fp32_close(y, lowered_conv_ref(x, w, stride))
+    want_low = lower(x, kh, kw, stride)
+    assert torch.equal(low.reshape(want_low.shape), want_low)
+    y2, low2 = lowering_conv_cuda(x, w, stride=stride, return_lowered=True)
+    assert torch.equal(y2, y) and torch.equal(low2, low)
+    assert torch.equal(lowering_conv_cuda(x, w, stride=stride), y)
 
 
 def test_training_kernel_arms_match_plain_arms(card):

@@ -1,4 +1,4 @@
-"""The arithmetic of the two tensor-core kernels, on the CPU.
+"""The arithmetic of the redesigned kernels, on the CPU.
 
 The CUDA kernels run only on the card (``tests/test_torch_gpu.py`` and
 ``chip_smoke.py`` hold them to their plain versions there). This file pins
@@ -21,6 +21,23 @@ on numpy-seeded inputs, against the JAX package:
   ``flash_attention_pallas(..., interpret=True)`` and the port's
   ``flash_attention_ref``, in fp32 (1e-5) and bf16 (2e-2 and relative RMS
   1e-2, the card's limits), for GQA, windows, ragged Sk and q_offsets.
+- **paged decode** (``csrc/paged_attention.cu``): the live keys cut into
+  16-slot tiles and split over ``paged_splits`` blocks as the kernel cuts
+  them, the bf16 kernel's four warps taking every fourth tile of a split
+  and merged in warp order, p rounded per tile against the running max of
+  its split, the partials combined in split order; against JAX
+  ``paged_attention_pallas(..., interpret=True)`` and the port's
+  ``paged_attention_ref`` in fp32 (1e-5) and bf16 (2e-2 and relative RMS
+  1e-2): linear and ring caches, a split whose keys are all masked, a
+  stale retired row, pos 0, full tables, G in {1, 4, 7}.
+- **lowering-conv forward** (``csrc/lowering_conv.cu``): the lowered matrix
+  gathered column by column in flat K order (taps outer, channels inner),
+  the product in stages of 32 columns summed apart, in fp32 and in
+  emulated 3xTF32, against JAX ``lowering_conv_xla`` and
+  ``lowering_conv_pallas(..., interpret=True)`` at CaffeNet's conv1-5
+  kernel shapes (reduced batch and image) within 1e-5 relative RMS, while
+  one TF32 product misses that limit; the gathered residual is bitwise the
+  port's and the JAX ``lower``.
 """
 import math
 
@@ -32,8 +49,17 @@ import torch
 from repro.kernels.flash_attention.flash_attention import \
     flash_attention_pallas
 from repro.kernels.lowering_conv import bwd as jbwd
+from repro.kernels.lowering_conv import ops as jlc
+from repro.kernels.lowering_conv.lowering_conv import lowering_conv_pallas
+from repro.kernels.lowering_conv.ref import lower as j_lower
+from repro.kernels.paged_attention.paged_attention import \
+    paged_attention_pallas
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.lowering_conv import bwd
+from repro_torch.kernels.lowering_conv.ref import lower
+from repro_torch.kernels.paged_attention import ops as pa
+from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
+                                                     valid_mask)
 
 STAGE = 32          # output channels of one tap per dgrad stage
 KEY_TILE = 64       # keys per flash tile
@@ -309,3 +335,249 @@ def test_blocked_flash_matches_jax_pallas_and_the_plain_version(name, dtype):
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
         if dtype == torch.bfloat16:
             assert _rel_rms(got.float(), want) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# paged decode: the split over key tiles and the combine in split order
+# ---------------------------------------------------------------------------
+
+WARPS = 4           # the bf16 kernel's warps: each takes every 4th tile
+
+
+def _merge(states):
+    """(m, l, acc) states combined in order: weight exp(m - M), M the
+    largest m."""
+    big = torch.stack([m for m, _, _ in states]).amax(0)
+    l_sum = torch.zeros_like(big)
+    a_sum = torch.zeros_like(states[0][2])
+    for m, l, a in states:
+        wt = torch.exp(m - big)
+        l_sum = l_sum + l * wt
+        a_sum = a_sum + a * wt[:, None]
+    return big, l_sum, a_sum
+
+
+def split_paged(q, kp, vp, table, pos, *, window=None, lanes=1,
+                splits=None):
+    """The kernel's paged decode in plain PyTorch: a row's live slots
+    [0, (jmax+1)*page) cut into 16-slot tiles, the tiles split over
+    ``splits`` blocks (``ceil(n_tiles / splits)`` each), each block's tiles
+    dealt to ``lanes`` running states (the bf16 kernel's 4 warps; 1 for the
+    fp32 kernel), scores in fp32 times the scale, -1e30 where the slot is
+    not valid and -inf past the split's end, p rounded to q's type for PV
+    and l summed from the fp32 p; the lanes merged in order, then the
+    splits. Returns (out, number of splits whose keys were all masked)."""
+    b, _, h, hd = q.shape
+    _, page, kh, _ = kp.shape
+    n_pages = table.shape[1]
+    g = h // kh
+    W = n_pages * page
+    T = pa.KEY_TILE
+    if splits is None:
+        splits = pa.paged_splits(b, kh, n_pages, page)
+    scale = 1.0 / math.sqrt(hd)
+    ok_all = valid_mask(pos, W, window)
+    out = torch.empty_like(q)
+    masked = 0
+    for bi in range(b):
+        p = int(pos[bi])
+        jmax = n_pages - 1 if window is not None and p >= W else p // page
+        live = (min(jmax, n_pages - 1) + 1) * page
+        n_t = -(-live // T)
+        per = max(1, -(-n_t // splits))
+        slots = torch.arange(n_t * T)
+        ids = table[bi].long()[torch.clamp(slots // page, max=n_pages - 1)]
+        ok = ok_all[bi, torch.clamp(slots, max=W - 1)]
+        for k in range(kh):
+            keys = kp[ids, slots % page, k].float()
+            vals = vp[ids, slots % page, k].float()
+            qf = q[bi, 0, k * g:(k + 1) * g].float()
+            parts = []
+            for t0 in range(0, n_t, per):
+                t1 = min(t0 + per, n_t)
+                end = min(t1 * T, live)
+                states = []
+                for lane in range(lanes):
+                    m = torch.full((g,), -1e30)
+                    l = torch.zeros(g)
+                    acc = torch.zeros((g, hd))
+                    for t in range(t0 + lane, t1, lanes):
+                        sl = slots[t * T:(t + 1) * T]
+                        sc = (qf @ keys[sl].T) * scale
+                        sc = torch.where(ok[sl], sc, torch.tensor(-1e30))
+                        sc = torch.where(sl >= end, torch.tensor(-math.inf),
+                                         sc)
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.exp(m - m_new)
+                        pr = torch.exp(sc - m_new[:, None])
+                        l = l * alpha + pr.sum(-1)
+                        acc = (acc * alpha[:, None]
+                               + pr.to(q.dtype).float() @ vals[sl])
+                        m = m_new
+                    states.append((m, l, acc))
+                parts.append(_merge(states))
+                masked += int(bool((parts[-1][0] <= -1e30).all()))
+            _, l_sum, a_sum = _merge(parts)
+            o = a_sum / torch.clamp(l_sum, min=1e-30)[:, None]
+            out[bi, 0, k * g:(k + 1) * g] = o.to(q.dtype)
+    return out, masked
+
+
+PAGED_CASES = {
+    # name: (B, K, G, page, n_pages, pos, window, stale rows, splits)
+    "linear G1 pos 0 and a full table": (3, 2, 1, 16, 8, (0, 77, 127),
+                                         None, (), None),
+    "linear G4 stale retired row": (3, 2, 4, 16, 8, (5, 900, 64), None,
+                                    (1,), None),
+    "ring G7 wrapped rows": (3, 2, 7, 16, 8, (200, 15, 300), 128, (),
+                             None),
+    "ring with masked splits": (3, 2, 4, 64, 2, (5, 70, 400), 128, (),
+                                None),
+    # one split of 8 tiles: each of the 4 warps' states runs over 2 tiles
+    "full table G7, one split": (2, 2, 7, 16, 8, (127, 127), None, (), 1),
+}
+
+
+def _paged_inputs(case, dtype, seed):
+    b, kh, g, page, n_pages, pos, window, stale, _ = case
+    rng = np.random.default_rng(seed)
+    hd = 32
+    n_pool = 1 + b * n_pages
+
+    def mk(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dtype)
+
+    q, kp, vp = (mk(b, 1, kh * g, hd), mk(n_pool, page, kh, hd),
+                 mk(n_pool, page, kh, hd))
+    table = torch.from_numpy((rng.permutation(n_pool - 1) + 1).astype(
+        np.int32)).view(b, n_pages).clone()
+    for bi, p in enumerate(pos):
+        if window is None:                 # past the live page: scratch 0
+            table[bi, min(p // page, n_pages - 1) + 1:] = 0
+    for bi in stale:
+        table[bi] = 0
+    return q, kp, vp, table, torch.tensor(pos, dtype=torch.int32)
+
+
+def _jax_paged(q, kp, vp, table, pos, window):
+    b, _, h, hd = q.shape
+    kh = kp.shape[2]
+    jdt = jnp.bfloat16 if q.dtype == torch.bfloat16 else jnp.float32
+
+    def cv(t):
+        return jnp.asarray(t.float().numpy()).astype(jdt)
+
+    o = paged_attention_pallas(cv(q.reshape(b, kh, h // kh, hd)), cv(kp),
+                               cv(vp), jnp.asarray(table.numpy()),
+                               jnp.asarray(pos.numpy()), window=window,
+                               interpret=True)
+    return torch.from_numpy(np.array(o.astype(jnp.float32))).reshape(
+        b, 1, h, hd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(PAGED_CASES))
+def test_split_paged_decode_matches_jax_pallas_and_the_plain_version(
+        name, dtype):
+    case = PAGED_CASES[name]
+    window, splits = case[6], case[8]
+    q, kp, vp, table, pos = _paged_inputs(case, dtype, seed=len(name))
+    lanes = WARPS if dtype == torch.bfloat16 else 1
+    got, masked = split_paged(q, kp, vp, table, pos, window=window,
+                              lanes=lanes, splits=splits)
+    if name == "ring with masked splits":
+        assert masked > 0                 # their weight exp(-1e30 - M) = 0
+    assert torch.isfinite(got.float()).all()
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for want in (_jax_paged(q, kp, vp, table, pos, window),
+                 paged_attention_ref(q, kp, vp, table, pos,
+                                     window=window).float()):
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            assert _rel_rms(got.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("b,kh,n_pages,page,want", [
+    (8, 4, 64, 16, 8),       # qwen2-7b serving: 8 x 4 x 8 = 256 blocks
+    (3, 2, 8, 16, 8),        # one 16-slot tile a split
+    (3, 2, 2, 64, 8),
+    (64, 8, 4, 16, 1),       # B * K alone fills the card
+    (1, 1, 64, 16, 32),      # at most MAX_SPLITS, 2 tiles each
+    (1, 1, 4, 5, 2)])        # 20 slots: two tiles, the second ragged
+def test_paged_splits_fill_the_card_from_the_shapes(b, kh, n_pages, page,
+                                                    want):
+    s = pa.paged_splits(b, kh, n_pages, page)
+    assert s == want
+    tiles = -(-n_pages * page // pa.KEY_TILE)
+    per = -(-tiles // s)
+    assert -(-tiles // per) == s          # no split is empty at a full table
+
+
+@pytest.mark.parametrize("hd", pa.HEAD_DIMS)
+def test_paged_shared_memory_fits_a_block(hd):
+    for dtype in pa.DTYPES:
+        assert 0 < pa.smem_bytes(dtype, hd) <= pa._SMEM_LIMIT
+        assert pa.smem_bytes(dtype, hd) % 16 == 0
+
+
+# ---------------------------------------------------------------------------
+# lowering-conv forward: the implicit GEMM in flat K order
+# ---------------------------------------------------------------------------
+
+def implicit_forward(x, w, stride, mode="fp32"):
+    """y and the lowered residual as the kernel builds them: column
+    k = (i, j, c) of row (b, ho, wo) gathered from x[b, ho*s + i, wo*s + j,
+    c], in flat K order; the product in stages of 32 columns, each summed
+    apart and added to the running sum."""
+    b, h, wd, cin = x.shape
+    kh, kw, _, cout = w.shape
+    ho, wo = (h - kh) // stride + 1, (wd - kw) // stride + 1
+    K = kh * kw * cin
+    k = torch.arange(K)
+    i, j, c = k // (kw * cin), (k % (kw * cin)) // cin, k % cin
+    rows = (torch.arange(ho) * stride)[:, None, None] + i
+    cols = (torch.arange(wo) * stride)[None, :, None] + j
+    low = x[:, rows, cols, c]                          # (B, Ho, Wo, K)
+    a, wm = low.reshape(-1, K), w.reshape(K, cout)
+    y = torch.zeros((a.shape[0], cout), dtype=torch.float32)
+    for k0 in range(0, K, STAGE):
+        y += _product(a[:, k0:k0 + STAGE], wm[k0:k0 + STAGE], mode)
+    return y.reshape(b, ho, wo, cout), low
+
+
+@pytest.mark.parametrize("layer,x_shape,w_shape,stride", [
+    ("conv1", (2, 23, 23, 3), (11, 11, 3, 96), 4),
+    ("conv2", (2, 9, 9, 96), (5, 5, 96, 256), 1),
+    ("conv3", (2, 7, 7, 256), (3, 3, 256, 384), 1),
+    ("conv4", (2, 6, 6, 384), (3, 3, 384, 384), 1),
+    ("conv5", (2, 5, 5, 384), (3, 3, 384, 256), 1)])
+def test_3xtf32_forward_in_flat_k_order_matches_jax(layer, x_shape, w_shape,
+                                                    stride):
+    """CaffeNet's kernel shapes (K = 363, 2400, 2304, 3456, 3456) with the
+    card's inputs (x ~ N(0, 1), w ~ 0.05 N(0, 1)) at batch 2 and a reduced
+    image."""
+    rng = np.random.default_rng(w_shape[0] * 1000 + w_shape[3])
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    w = (rng.standard_normal(w_shape) * 0.05).astype(np.float32)
+    want_xla = np.asarray(jlc.lowering_conv_xla(jnp.asarray(x),
+                                                jnp.asarray(w),
+                                                stride=stride))
+    want_pallas, low_pallas = lowering_conv_pallas(
+        jnp.asarray(x), jnp.asarray(w), stride=stride, interpret=True,
+        return_lowered=True)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    kh, kw = w_shape[:2]
+    for mode in ("fp32", "3xtf32"):
+        y, low = implicit_forward(xt, wt, stride, mode)
+        for want in (want_xla, np.asarray(want_pallas)):
+            assert _rel_rms(y, want) <= 1e-5, mode
+            assert _rel_max(y, want) <= 1e-4, mode
+        flat = low.reshape(-1, low.shape[-1])
+        assert torch.equal(flat, lower(xt, kh, kw, stride))
+        assert np.array_equal(flat.numpy(), np.asarray(
+            j_lower(jnp.asarray(x), kh, kw, stride)))
+        assert np.array_equal(low.numpy(), np.asarray(low_pallas))
+    one, _ = implicit_forward(xt, wt, stride, "1xtf32")
+    assert _rel_rms(one, want_xla) > 1e-5          # why three products
