@@ -48,11 +48,12 @@ passed over, nothing falls back to the CPU):
    update bitwise equal to its plain version (fp32 and bf16, CaffeNet's
    largest leaf and the slab of all 16 leaves, g = 4); the lowering-conv
    forward (its lowered residual bitwise), wgrad and dgrad at the five
-   full-width CaffeNet layer shapes at group batch 64, plus two ragged
-   dgrad tiles and a stride-2 dgrad, within ``1e-4 * max|want|`` abs and
-   ``1e-5`` relative RMS (fp32 sums over K <= 3456 or M <= 193,600 in
-   another order than cuBLAS; the forward and dgrad in 3xTF32 on tensor
-   cores);
+   full-width CaffeNet layer shapes at group batch 64 (wgrad called twice
+   for the same bits), plus two ragged dgrad tiles and a stride-2 dgrad,
+   and wgrad at the same two ragged tiles, at M no multiple of its 32-row
+   stage and at M < 32, within ``1e-4 * max|want|`` abs and ``1e-5``
+   relative RMS (fp32 sums over K <= 3456 or M <= 193,600 in another
+   order than cuBLAS; all three in 3xTF32 on tensor cores);
    timed beside the plain versions and ``F.conv2d`` /
    ``torch.nn.grad.conv2d_weight`` / ``conv2d_input`` (channels-last fp32,
    TF32 off; timed here only);
@@ -711,6 +712,21 @@ def caffenet_layers():
     return C.conv_layer_shapes(C.CAFFENET, CNN_GROUP_BATCH)
 
 
+def _check_wgrad(torch, tag, low, dy, ws) -> float:
+    """wgrad against its plain version, and the same bits on a second call
+    (the split over M is summed in a fixed order)."""
+    from repro_torch.kernels.lowering_conv import bwd
+    got = bwd.wgrad_cuda(low, dy, ws)
+    err = compare_fp32(torch, f"wgrad {tag}", got, bwd.wgrad_ref(low, dy, ws))
+    rows, slices = bwd.wgrad_slices(dy.numel() // ws[3], low.shape[-1],
+                                    ws[3])
+    if not torch.equal(bwd.wgrad_cuda(low, dy, ws), got):
+        fail(f"wgrad {tag}: a second call gave other bits")
+    log(f"[check] wgrad {tag}: {slices} slices of {rows} rows, the same bits "
+        "on a second call ok")
+    return err
+
+
 def phase_check_train(torch) -> dict:
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
@@ -771,9 +787,8 @@ def phase_check_train(torch) -> dict:
             "bitwise equal to ref.lower ok")
         dy = torch.randn(y.shape, generator=g, device=dev)
         del y, y_ref, low_ref
-        errs["wgrad"] = max(errs["wgrad"], compare_fp32(
-            torch, f"wgrad {tag}", bwd.wgrad_cuda(low, dy, ws),
-            bwd.wgrad_ref(low, dy, ws)))
+        errs["wgrad"] = max(errs["wgrad"], _check_wgrad(torch, tag, low, dy,
+                                                        ws))
         if i > 0:                     # conv1 has needs_dgrad=False
             errs["dgrad"] = max(errs["dgrad"], compare_fp32(
                 torch, f"dgrad {tag}", bwd.dgrad_cuda(dy, w, xs, stride=s),
@@ -792,6 +807,19 @@ def phase_check_train(torch) -> dict:
             torch, f"dgrad {label} x{xs} w{ws} s{s}",
             bwd.dgrad_cuda(dy, w, xs, stride=s), bwd.dgrad_ref(dy, w, xs, s)))
         del w, dy
+    for label, m, ws in (
+            # the dgrad loop's ragged tiles (Cout 50: 4-byte copies of dY
+            # and of the 630-float residual rows), then M off the 32-row
+            # stage and M below one stage
+            ("ragged", CNN_GROUP_BATCH * 11 * 11, (3, 3, 70, 50)),
+            ("ragged", CNN_GROUP_BATCH * 13 * 13, (3, 3, 130, 36)),
+            ("M off the stage", 3 * 11 * 11, (3, 3, 96, 64)),
+            ("M < 32", 25, (3, 3, 96, 96))):
+        low = torch.randn((m, ws[0] * ws[1] * ws[2]), generator=g, device=dev)
+        dy = torch.randn((m, ws[3]), generator=g, device=dev)
+        errs["wgrad"] = max(errs["wgrad"], _check_wgrad(
+            torch, f"{label} M={m} w{ws}", low, dy, ws))
+        del low, dy
     torch.cuda.empty_cache()
     return errs
 
@@ -802,8 +830,8 @@ def phase_time_train(torch) -> dict:
     over the five layers of one group's calls (group batch 64; dgrad over
     layers 2-5), each beside its plain version, one PyTorch library call
     and its bound (HBM, and the product form's 2*M*K*Cout flops at the
-    kernel's rate: fp32 CUDA cores for B3, three TF32 tensor-core products
-    a flop for B2's and B4's 3xTF32)."""
+    kernel's rate: three TF32 tensor-core products a flop for the 3xTF32
+    of B2, B3 and B4, with the fp32 CUDA-core bound printed beside it)."""
     import torch.nn.functional as F
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
@@ -845,16 +873,14 @@ def phase_time_train(torch) -> dict:
 
     tot = {k: dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0.0,
                    flops=0.0) for k in ("lowering_conv", "wgrad", "dgrad")}
-    rate = {"lowering_conv": TF32_FLOP_S / 3, "wgrad": FP32_FLOP_S,
-            "dgrad": TF32_FLOP_S / 3}
 
-    def bounds(name, nbytes, flops):
-        b_ms, b_by = bound(nbytes, flops, rate[name])
-        text = f"bound_ms={b_ms:.5f} ({b_by})"
-        if rate[name] != FP32_FLOP_S:
-            text += (f" [3xTF32 at {TF32_FLOP_S / 1e12:.0f} TFLOP/s; fp32 "
-                     f"CUDA cores: {bound(nbytes, flops, FP32_FLOP_S)[0]:.5f}]")
-        return b_ms, b_by, text
+    def bounds(nbytes, flops):
+        """3xTF32: three TF32 tensor-core products a necessary flop."""
+        b_ms, b_by = bound(nbytes, flops, TF32_FLOP_S / 3)
+        return b_ms, b_by, (
+            f"bound_ms={b_ms:.5f} ({b_by}) [3xTF32 at "
+            f"{TF32_FLOP_S / 1e12:.0f} TFLOP/s; fp32 CUDA cores: "
+            f"{bound(nbytes, flops, FP32_FLOP_S)[0]:.5f}]")
 
     def add(name, tag, ms, plain, lib, nbytes, flops):
         t = tot[name]
@@ -862,7 +888,7 @@ def phase_time_train(torch) -> dict:
                      ("nbytes", nbytes), ("flops", flops)):
             t[k] += v
         log(f"[time] {name} {tag}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
-            f"library_ms={lib:.4f} {bounds(name, nbytes, flops)[2]} "
+            f"library_ms={lib:.4f} {bounds(nbytes, flops)[2]} "
             f"achieved={flops / ms / 1e9:.2f} TFLOP/s")
 
     for i, (xs, ws, s) in enumerate(caffenet_layers()):
@@ -906,7 +932,7 @@ def phase_time_train(torch) -> dict:
                 4.0 * (M * cout + K * cout + x.numel()), gemm)
         del x, w, y, low, dy, xc, wc, dyc, wm
     for name, t in tot.items():
-        b_ms, b_by, text = bounds(name, t["nbytes"], t["flops"])
+        b_ms, b_by, text = bounds(t["nbytes"], t["flops"])
         out[name] = dict(ms=t["ms"], plain_ms=t["plain_ms"],
                          library_ms=t["library_ms"], bound_ms=b_ms,
                          bound_by=b_by)

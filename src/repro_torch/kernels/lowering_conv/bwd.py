@@ -10,10 +10,11 @@ forward already built:
                                                   columns added back to pixels
 
 Plain versions (``wgrad_ref``, ``col2im_ref``, ``dgrad_ref``: the JAX
-``*_xla`` forms) and the wrappers of the two kernels: ``wgrad_cuda``
-(``csrc/wgrad.cu``: split-M partial products, then a fixed-order sum) and
-``dgrad_cuda`` (``csrc/dgrad.cu``: dX as one implicit GEMM over the taps,
-dY gathered on the fly, 3xTF32 on tensor cores; no dCols, no col2im pass).
+``*_xla`` forms) and the wrappers of the two kernels, both 3xTF32 on
+tensor cores: ``wgrad_cuda`` (``csrc/wgrad.cu``: partial products over
+slices of the M rows, then a sum in slice order) and ``dgrad_cuda``
+(``csrc/dgrad.cu``: dX as one implicit GEMM over the taps, dY gathered on
+the fly; no dCols, no col2im pass).
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version. Each wrapper call adds one to its ``launches``.
 """
@@ -30,13 +31,15 @@ from repro_torch.kernels.lowering_conv.lowering_conv import (check_operands,
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``wgrad_launch``'s C signature, in order
-WGRAD_ARGTYPES = [_P] * 4 + [_I] * 6 + [_P]
+WGRAD_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
 #: ``dgrad_launch``'s C signature, in order
 DGRAD_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
-DGRAD_BLOCK_N = (64, 96)       # dgrad tile widths in input channels
+DGRAD_BLOCK_N = (64, 96)       # tile widths in channels (dgrad Cin, wgrad Cout)
 
+WGRAD_TILE_K = 64              # rows of dW (K) per wgrad block
+WGRAD_STAGE_ROWS = 32          # reduction rows of one wgrad stage
 WGRAD_MAX_SLICE_ROWS = 2048    # rows one block sums in order (fp32 error)
-WGRAD_TARGET_BLOCKS = 4 * 132  # four blocks per SM of an H100
+WGRAD_TARGET_BLOCKS = 6 * 132  # six blocks per SM of an H100
 
 
 # ---------------------------------------------------------------------------
@@ -91,15 +94,18 @@ def dgrad_ref(dy: torch.Tensor, w: torch.Tensor, x_shape,
 # ---------------------------------------------------------------------------
 
 def wgrad_slices(m: int, k: int, cout: int):
-    """(slice_rows, slices) of the split over the M rows: enough blocks to
-    fill the card, at most ``WGRAD_MAX_SLICE_ROWS`` rows summed in order by
-    any one block, slices a multiple of 16 rows. Depends on the shapes only,
-    so a run gives the same bits as the last one."""
-    tiles = math.ceil(k / 64) * math.ceil(cout / 64)
+    """(slice_rows, slices) of the split over the M rows: about
+    ``WGRAD_TARGET_BLOCKS`` blocks over the dW tiles (64 x
+    ``dgrad_block_n(cout)``), at most ``WGRAD_MAX_SLICE_ROWS`` rows summed
+    in order by any one block, slices a whole number of 32-row stages.
+    Depends on the shapes only, so a run gives the same bits as the last
+    one."""
+    tiles = (math.ceil(k / WGRAD_TILE_K)
+             * math.ceil(cout / dgrad_block_n(cout)))
     s = max(math.ceil(m / WGRAD_MAX_SLICE_ROWS),
             math.ceil(WGRAD_TARGET_BLOCKS / tiles))
-    s = min(s, math.ceil(m / 16))
-    rows = math.ceil(math.ceil(m / s) / 16) * 16
+    s = min(s, math.ceil(m / WGRAD_STAGE_ROWS))
+    rows = math.ceil(math.ceil(m / s) / WGRAD_STAGE_ROWS) * WGRAD_STAGE_ROWS
     return rows, math.ceil(m / rows)
 
 
@@ -124,7 +130,8 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
                      device=lowered.device)
     err = _build.launcher("wgrad", WGRAD_ARGTYPES)(
         lowered.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), m,
-        K, cout, rows, slices, lowered.device.index or 0,
+        K, cout, rows, slices, dgrad_block_n(cout),
+        lowered.device.index or 0,
         torch.cuda.current_stream(lowered.device).cuda_stream)
     _build.check(err, "wgrad")
     wgrad_cuda.launches += 1
@@ -134,11 +141,12 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
 wgrad_cuda.launches = 0
 
 
-def dgrad_block_n(cin: int) -> int:
-    """The dgrad tile's width in input channels: the one of
-    ``DGRAD_BLOCK_N`` that pads Cin least, the wider on a tie (conv2's 96
-    channels fill one tile; 384 takes four tiles of 96)."""
-    return min(DGRAD_BLOCK_N, key=lambda n: (math.ceil(cin / n) * n, -n))
+def dgrad_block_n(c: int) -> int:
+    """A tile's width in channels (dgrad: input channels; wgrad: output
+    channels): the one of ``DGRAD_BLOCK_N`` that pads c least, the wider on
+    a tie (96 channels fill one tile; 256 take four of 64, 384 four of
+    96)."""
+    return min(DGRAD_BLOCK_N, key=lambda n: (math.ceil(c / n) * n, -n))
 
 
 def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,

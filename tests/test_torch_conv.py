@@ -19,6 +19,7 @@ The CUDA kernels are held to these plain versions on the card
 (``tests/test_torch_gpu.py``, ``chip_smoke.py``).
 """
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -168,11 +169,16 @@ def test_kernel_wrappers_on_cpu_take_the_plain_versions():
 
 def test_tiles_and_wgrad_slices():
     assert choose_tiles(64, 55, 8, 8) == (8, 5)
-    for m, k, n in ((193600, 363, 96), (33856, 2400, 256), (1600, 3456, 256),
-                    (5, 27, 4)):
+    for m, k, n, bn in ((193600, 363, 96, 96), (33856, 2400, 256, 64),
+                        (1600, 3456, 256, 64), (5, 27, 4, 64)):
         rows, s = bwd.wgrad_slices(m, k, n)
-        assert rows % 16 == 0 and rows <= bwd.WGRAD_MAX_SLICE_ROWS
+        assert rows % bwd.WGRAD_STAGE_ROWS == 0
+        assert rows <= bwd.WGRAD_MAX_SLICE_ROWS
         assert (s - 1) * rows < m <= s * rows
+        assert bwd.dgrad_block_n(n) == bn     # the tile pads Cout least
+        tiles = math.ceil(k / bwd.WGRAD_TILE_K) * math.ceil(n / bn)
+        # enough blocks to fill the card, unless every slice is one stage
+        assert s * tiles >= bwd.WGRAD_TARGET_BLOCKS or rows == 32
 
 
 # ---------------------------------------------------------------------------

@@ -13,12 +13,12 @@ versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32.
 The fused update is bitwise its plain version (same fp32 order, no FMA
 contraction); the conv kernels sum over K or M in another order than
-cuBLAS (the forward and dgrad in 3xTF32 on tensor cores): max abs error
+cuBLAS (all three in 3xTF32 on tensor cores): max abs error
 <= 1e-4 * max|want| and relative RMS <= 1e-5; the lowered residual is
 bitwise; a training round agrees with the plain arms within 1e-4. The bf16
 flash kernel's edge cases and the split paged kernel's bf16 cases also hold
-a relative RMS error <= 1e-2; the split kernels give the same bits on a
-second call.
+a relative RMS error <= 1e-2; the split kernels (paged decode, wgrad)
+give the same bits on a second call.
 """
 import dataclasses
 import warnings
@@ -327,6 +327,27 @@ def test_lowering_conv_3xtf32_kernel_holds_fp32_limits(card, x_shape,
     y2, low2 = lowering_conv_cuda(x, w, stride=stride, return_lowered=True)
     assert torch.equal(y2, y) and torch.equal(low2, low)
     assert torch.equal(lowering_conv_cuda(x, w, stride=stride), y)
+
+
+@pytest.mark.parametrize("m,kshape", [
+    *[((8 * ((x[1] - w[0]) // s + 1) ** 2), w)
+      for x, w, s in C.conv_layer_shapes(C.CAFFENET, 8)],   # conv1-5, batch 8
+    (64 * 11 * 11, (3, 3, 70, 50)),        # Cout % 4 != 0: 4-byte copies
+    (64 * 13 * 13, (3, 3, 130, 36)),       # ragged K and Cout tiles
+    (3 * 11 * 11, (3, 3, 96, 64)),         # M no multiple of the 32-row stage
+    (25, (3, 3, 96, 96))],                 # M < 32: one ragged stage
+    ids=["conv1", "conv2", "conv3", "conv4", "conv5", "cout50", "cout36",
+         "m363", "m25"])
+def test_wgrad_3xtf32_kernel_holds_fp32_limits(card, m, kshape):
+    g = torch.Generator(device=card).manual_seed(m + kshape[3])
+    kh, kw, cin, cout = kshape
+    low = torch.randn((m, kh * kw * cin), generator=g, device=card)
+    dy = torch.randn((m, cout), generator=g, device=card)
+    before = lc_bwd.wgrad_cuda.launches
+    dw = lc_bwd.wgrad_cuda(low, dy, kshape)
+    assert lc_bwd.wgrad_cuda.launches == before + 1
+    _fp32_close(dw, lc_bwd.wgrad_ref(low, dy, kshape))
+    assert torch.equal(lc_bwd.wgrad_cuda(low, dy, kshape), dw)  # no atomics
 
 
 def test_training_kernel_arms_match_plain_arms(card):

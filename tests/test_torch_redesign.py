@@ -38,6 +38,14 @@ on numpy-seeded inputs, against the JAX package:
   kernel shapes (reduced batch and image) within 1e-5 relative RMS, while
   one TF32 product misses that limit; the gathered residual is bitwise the
   port's and the JAX ``lower``.
+- **wgrad** (``csrc/wgrad.cu``): dW = lowered^T @ dY with the M rows cut
+  into ``wgrad_slices``'s slices, each slice summed in 32-row stages (each
+  stage summed apart and then added) and the partials added in slice
+  order, in fp32 and in emulated 3xTF32, against JAX ``wgrad_xla`` and
+  ``wgrad_pallas(..., interpret=True)`` at CaffeNet's conv1-5 kernel
+  shapes (reduced batch and image) within 1e-5 relative RMS, one case a
+  single 4900-row slice past ``WGRAD_MAX_SLICE_ROWS``; one TF32 product
+  misses that limit.
 """
 import math
 
@@ -580,4 +588,74 @@ def test_3xtf32_forward_in_flat_k_order_matches_jax(layer, x_shape, w_shape,
             j_lower(jnp.asarray(x), kh, kw, stride)))
         assert np.array_equal(low.numpy(), np.asarray(low_pallas))
     one, _ = implicit_forward(xt, wt, stride, "1xtf32")
+    assert _rel_rms(one, want_xla) > 1e-5          # why three products
+
+
+# ---------------------------------------------------------------------------
+# wgrad: split over the M rows, 32-row stages, partials in slice order
+# ---------------------------------------------------------------------------
+
+def split_wgrad(low, dy, mode="fp32", slice_rows=None):
+    """dW = low^T @ dy as the kernel sums it: the M rows cut into slices of
+    ``bwd.wgrad_slices``'s rows (or ``slice_rows``), each slice a sum of
+    32-row stages, each stage summed apart and added to the slice's running
+    sum, and the slices' partials added in slice order."""
+    m, k = low.shape
+    cout = dy.shape[1]
+    rows = slice_rows or bwd.wgrad_slices(m, k, cout)[0]
+    step = bwd.WGRAD_STAGE_ROWS
+    dw = torch.zeros((k, cout), dtype=torch.float32)
+    for z0 in range(0, m, rows):
+        part = torch.zeros((k, cout), dtype=torch.float32)
+        for q0 in range(z0, min(m, z0 + rows), step):
+            q1 = min(m, z0 + rows, q0 + step)
+            part += _product(low[q0:q1].T, dy[q0:q1], mode)
+        dw += part
+    return dw
+
+
+WGRAD_CASES = {     # x_shape, w_shape, stride, slice_rows (None: the wrapper's)
+    "conv1": ((2, 63, 63, 3), (11, 11, 3, 96), 4, None),
+    "conv2": ((2, 27, 27, 96), (5, 5, 96, 256), 1, None),
+    "conv3": ((2, 11, 11, 256), (3, 3, 256, 384), 1, None),
+    "conv4": ((2, 9, 9, 384), (3, 3, 384, 384), 1, None),
+    "conv5": ((2, 7, 7, 384), (3, 3, 384, 256), 1, None),
+    # one slice of 4900 rows: past WGRAD_MAX_SLICE_ROWS, to test the cap
+    "conv1_long_slice": ((4, 147, 147, 3), (11, 11, 3, 96), 4, 4928),
+}
+
+
+@pytest.mark.parametrize("case", list(WGRAD_CASES))
+def test_3xtf32_split_wgrad_matches_jax(case):
+    """CaffeNet's kernel shapes (K = 363, 2400, 2304, 3456, 3456) with the
+    card's inputs (lowered from x ~ N(0, 1), dY ~ N(0, 1)) at a reduced
+    batch and image, cut into the wrapper's slices (2-13 of them here)."""
+    x_shape, w_shape, stride, slice_rows = WGRAD_CASES[case]
+    kh, kw, _, cout = w_shape
+    rng = np.random.default_rng(sum(w_shape) + len(case))
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    low = lower(torch.from_numpy(x), kh, kw, stride)        # (M, K)
+    m, k = low.shape
+    ho = (x_shape[1] - kh) // stride + 1
+    dy = rng.standard_normal((x_shape[0], ho, ho, cout)).astype(np.float32)
+    dyt = torch.from_numpy(dy).reshape(m, cout)
+    rows, slices = bwd.wgrad_slices(m, k, cout)
+    if slice_rows is None:
+        assert slices > 1                  # the split is exercised
+    else:
+        assert slice_rows >= max(4096, m) > bwd.WGRAD_MAX_SLICE_ROWS
+    jlow = jnp.asarray(low.numpy())
+    want_xla = np.asarray(jbwd.wgrad_xla(jlow, jnp.asarray(dy), w_shape))
+    want_pallas = np.asarray(jbwd.wgrad_pallas(
+        jlow.reshape(x_shape[0], ho, ho, k), jnp.asarray(dy), w_shape,
+        interpret=True))
+    for mode in ("fp32", "3xtf32"):
+        got = split_wgrad(low, dyt, mode, slice_rows).reshape(w_shape)
+        for want in (want_xla, want_pallas):
+            assert _rel_rms(got, want) <= 1e-5, mode
+            assert _rel_max(got, want) <= 1e-4, mode
+    # the port's CPU path (the kernel's plain version) agrees as well
+    plain = bwd.wgrad_cuda(low, dyt, w_shape)
+    assert _rel_rms(plain, want_xla) <= 1e-5
+    one = split_wgrad(low, dyt, "1xtf32", slice_rows).reshape(w_shape)
     assert _rel_rms(one, want_xla) > 1e-5          # why three products
