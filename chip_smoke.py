@@ -67,11 +67,28 @@ passed over, nothing falls back to the CPU):
    round (device idle share, the kernels that take the time);
 9. training parity: at full CaffeNet widths, batch 8, g = 2, one round
    with the kernel arms and one with the plain arms (``lowering`` /
-   ``torch``) agree within ``1e-4`` on the loss and all 16 updated leaves.
+   ``torch``) agree within ``1e-4`` on the loss and all 16 updated leaves;
+10. the multi-device engine (``engine.spmd``): (a) world size 1 over NCCL,
+   ``Engine(exec_mode="spmd")`` trains full-width CaffeNet at batch 256,
+   g = 1 ``sync``, 2 rounds, bitwise the ``exec_mode="reference"`` run of
+   the same rounds (params, momentum, losses, per-shard losses); (b) four
+   ranks sharing the card over gloo with CUDA tensors (spawned, a file
+   rendezvous in a temporary directory) at (g, k, mp) = (4, 1, 1),
+   (2, 2, 1) and (2, 1, 2), ``grouped-fused``, 2 rounds each: every rank
+   bitwise the single-process reference of the same (g, k); both with the
+   launch counts zeroed before each SPMD run and checked after it (per
+   round and rank: lowering_conv 5, wgrad 5, dgrad 4, fused_update once
+   per bucket) and every loss finite; (c) the bucket layout, the round
+   times under gloo (a correctness run: gloo stages through the host),
+   ``torch.cuda.device_count()``;
+11. B1 once per bucket slab of that layout (g = 4), timed against its
+   bytes bound.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
-phase 4 (and its training half) and prints no final line.
+phase 4 (and its training half) and prints no final line; ``--spmd-nccl``
+runs only phase 10 (b) over NCCL, one rank per card on a four-card
+machine, and prints no final line.
 """
 from __future__ import annotations
 
@@ -201,9 +218,10 @@ def phase_env(torch) -> str:
                          text=True, timeout=60)
     if smi.returncode:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    line = smi.stdout.strip().splitlines()[0].strip()
-    log(f"[env] nvidia-smi: {line}")
-    return line
+    lines = [x.strip() for x in smi.stdout.strip().splitlines()]
+    for i, x in enumerate(lines):
+        log(f"[env] nvidia-smi card {i}: {x}")
+    return lines[0]
 
 
 def phase_build() -> None:
@@ -1098,10 +1116,258 @@ def phase_train_parity(torch) -> None:
         f"their momentum) {worst:.3e} (tol 1e-4) ok")
 
 
+# ---------------------------------------------------------------------------
+# the multi-device engine
+# ---------------------------------------------------------------------------
+
+SPMD_ROUNDS = 2
+#: (g, k, mp) of the four-rank gloo runs sharing the card
+SPMD_MESHES = ((4, 1, 1), (2, 2, 1), (2, 1, 2))
+SPMD_WORLD = 4
+
+
+def _spmd_pair(torch, cfg, params, host, *, g, mp, strategy, num_devices,
+               device, update_impl) -> dict:
+    """``Engine(exec_mode="spmd")`` over ``host`` (global batches), its
+    launch counts zeroed just before and read just after, then
+    ``exec_mode="reference"`` over the same rounds and (g, k); whether
+    params, momentum, losses and per-shard losses are the same bits."""
+    from repro_torch.core import tree as T
+    from repro_torch.engine import Engine
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.sgd import init_momentum
+    kw = dict(strategy=strategy, num_groups=g, lr=0.01, momentum=0.3,
+              weight_decay=5e-4, head_filter=C.head_filter,
+              update_impl=update_impl, mp=mp, device=device)
+
+    def loss_fn(p, b):
+        return C.loss_fn(p, b, cfg)
+
+    mom = init_momentum(params)
+    counts = _train_counts()
+    eng = Engine(loss_fn, exec_mode="spmd", **kw)
+    for fn in counts.values():
+        fn.launches = 0
+    p, v, losses = eng.run(params, mom, iter(host), steps=len(host))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in counts.items()}
+    built = eng._built_step(CNN_BATCH // g)
+    ref = Engine(loss_fn, exec_mode="reference", num_devices=num_devices,
+                 **kw)
+    rp, rv, rlosses = ref.run(params, mom, iter(host), steps=len(host))
+    bad = [str(path) for (path, a), b in zip(
+        T.leaves_with_path(p) + T.leaves_with_path(v),
+        T.leaves(rp) + T.leaves(rv)) if not torch.equal(a, b)]
+    if losses != rlosses:
+        bad.append(f"losses {losses} != {rlosses}")
+    if len(eng.shard_losses) != len(ref.shard_losses) or not all(
+            (a == b).all() for a, b in zip(eng.shard_losses,
+                                           ref.shard_losses)):
+        bad.append("per-shard losses")
+    return {"mesh": list(built.fn.mesh_shape), "coord": list(built.coord),
+            "counts": got, "bad": bad, "losses": losses,
+            "shard_losses": [x.tolist() for x in eng.shard_losses],
+            "buckets": [[b.nbytes, b.is_head, len(b.indices)]
+                        for b in built.fn.buckets],
+            "round_ms": [x * 1e3 for x in eng.telemetry.step_s]}
+
+
+def _check_spmd(res: dict, label: str, rounds: int) -> None:
+    """Bitwise the reference, finite losses, per-round launch counts."""
+    if res["bad"]:
+        fail(f"{label}: SPMD differs from the reference at {res['bad'][:5]}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        fail(f"{label}: non-finite loss in {res['losses']}")
+    want = {"lowering_conv": 5 * rounds, "wgrad": 5 * rounds,
+            "dgrad": 4 * rounds, "fused_update": len(res["buckets"]) * rounds}
+    if res["counts"] != want:
+        fail(f"{label}: launch counts {res['counts']} != {want}")
+
+
+def _host_batches(cfg, rounds: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages
+    return list(SyntheticImages(DataConfig(
+        batch_size=CNN_BATCH, image_size=cfg.image_size,
+        channels=cfg.in_channels, num_classes=cfg.num_classes,
+        seed=0)).batches(rounds))
+
+
+def phase_spmd_nccl(torch) -> dict:
+    """(a) World size 1 over NCCL: ``Engine(exec_mode="spmd")`` trains
+    full-width CaffeNet at batch 256, g = 1 ``sync``, bitwise the
+    reference on the card."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.models import cnn as C
+    dev = torch.device("cuda")
+    cfg = C.CAFFENET
+    params = C.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    host = _host_batches(cfg, SPMD_ROUNDS)
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
+                                rank=0, world_size=1)
+        try:
+            res = _spmd_pair(torch, cfg, params, host, g=1, mp=1,
+                             strategy="sync", num_devices=1, device=dev,
+                             update_impl="cuda")
+        finally:
+            dist.destroy_process_group()
+    _check_spmd(res, "spmd nccl world 1", SPMD_ROUNDS)
+    log(f"[spmd] (a) NCCL, world size 1, mesh {tuple(res['mesh'])}, sync, "
+        f"full-width CaffeNet batch {CNN_BATCH}, {SPMD_ROUNDS} rounds: "
+        f"params, momentum, losses {res['losses']} and per-shard losses "
+        f"bitwise the reference; launches {res['counts']} "
+        f"({len(res['buckets'])} buckets a round)")
+    return res["counts"]
+
+
+def _spmd_rank(rank: int, world: int, tmp: str, meshes, backend: str):
+    """One rank: every (g, k, mp) of ``meshes`` through ``_spmd_pair``,
+    results to ``tmp/rank<r>.json``. Over gloo every rank shares card 0;
+    over NCCL rank r takes card r."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import cnn as C
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{tmp}/rdv",
+                            rank=rank, world_size=world)
+    try:
+        params = C.init_params(torch.Generator(device=dev).manual_seed(0),
+                               C.CAFFENET)
+        host = _host_batches(C.CAFFENET, SPMD_ROUNDS)
+        out = {}
+        for g, k, mp in meshes:
+            res = _spmd_pair(torch, C.CAFFENET, params, host, g=g, mp=mp,
+                             strategy="grouped-fused", num_devices=world,
+                             device=dev, update_impl="cuda")
+            if tuple(res["mesh"]) != (g, k, mp):
+                raise RuntimeError(f"mesh {res['mesh']} for {(g, k, mp)}")
+            out[f"{g}x{k}x{mp}"] = res
+    finally:
+        dist.destroy_process_group()
+    with open(f"{tmp}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_spmd_ranks(torch, backend: str = "gloo") -> dict:
+    """(b) Four ranks with CUDA tensors, full CaffeNet width, batch 256, at
+    each of ``SPMD_MESHES``: every rank's params, momentum and per-shard
+    losses bitwise the single-process reference of the same (g, k); the
+    per-round launch counts of each rank; (c) the exchange's bucket layout
+    and the round times. ``backend="gloo"`` (the default run): the ranks
+    share the one card and gloo stages through the host, so the times are
+    a correctness run's, not a speed figure; ``"nccl"``
+    (``--spmd-nccl``): one rank per card, four cards."""
+    import tempfile
+    import torch.multiprocessing as mp
+    if backend == "nccl" and torch.cuda.device_count() < SPMD_WORLD:
+        fail(f"--spmd-nccl needs {SPMD_WORLD} cards, this machine has "
+             f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_spmd_rank, args=(SPMD_WORLD, d, SPMD_MESHES, backend),
+                 nprocs=SPMD_WORLD, join=True)
+        ranks = []
+        for r in range(SPMD_WORLD):
+            with open(f"{d}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    total = {}
+    for name in ranks[0]:
+        for r, res in enumerate(ranks):
+            label = f"spmd {backend} {name} rank {r}"
+            _check_spmd(res[name], label, SPMD_ROUNDS)
+            for kname, n in res[name]["counts"].items():
+                total[kname] = total.get(kname, 0) + n
+            if res[name]["shard_losses"] != ranks[0][name]["shard_losses"]:
+                fail(f"{label}: per-shard losses differ from rank 0's")
+        res = ranks[0][name]
+        layout = res["buckets"]
+        where = "on one card" if backend == "gloo" else "one a card"
+        log(f"[spmd] (b) {backend}, {SPMD_WORLD} ranks {where}, mesh {name} "
+            f"(g x k x mp), grouped-fused, {SPMD_ROUNDS} rounds: every "
+            f"rank bitwise the reference; per-shard losses "
+            f"{res['shard_losses']}; rank 0 launches {res['counts']}")
+        log(f"[spmd] (c) {name} buckets: {len(layout)} a round (rank 0's "
+            f"slabs), bytes {[b[0] for b in layout]}, head "
+            f"{[int(b[1]) for b in layout]}, leaves {[b[2] for b in layout]}")
+        what = ("gloo stages through the host: a correctness run, not a "
+                "speed figure" if backend == "gloo" else
+                "NCCL, single unprofiled rounds, unverified as speed "
+                "figures")
+        log(f"[spmd] (c) {name} round ms per rank (host clock, {what}): "
+            + "; ".join(f"rank {r} " + ", ".join(
+                f"{x:.1f}" for x in rk[name]["round_ms"])
+                for r, rk in enumerate(ranks)))
+    log(f"[spmd] (c) torch.cuda.device_count() = "
+        f"{torch.cuda.device_count()}; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    return total
+
+
+def phase_time_buckets(torch) -> None:
+    """B1 once per bucket slab of the g = 4 exchange's layout (full-width
+    CaffeNet, default target): bitwise its plain version on each slab, and
+    its device time against its bytes bound."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.async_sgd import head_mask_tree
+    from repro_torch.engine.buckets import assign_buckets, pack_bucket
+    from repro_torch.engine.spmd import DEFAULT_BUCKET_BYTES
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.kernels.fused_update.ref import fused_update_ref
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.closed_form import grouped_coeffs, head_coeffs
+    dev = torch.device("cuda")
+    g = 4
+    gen = torch.Generator(device=dev).manual_seed(5)
+    params = C.init_params(gen, C.CAFFENET)
+    leaves = T.leaves(params)
+    mask = T.leaves(head_mask_tree(params, C.head_filter))
+    coeffs = grouped_coeffs(g, lr=0.01, momentum=0.3, weight_decay=5e-4)
+    hcoeffs = head_coeffs(g, lr=0.01, momentum=0.3, weight_decay=5e-4)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    total_ms = total_bound = 0.0
+    rows = []
+    for b in assign_buckets(leaves, mask, DEFAULT_BUCKET_BYTES):
+        w = pack_bucket(b, leaves)
+        v = torch.randn(w.shape, generator=gen, device=dev) * 1e-3
+        gs = torch.randn((g,) + tuple(w.shape), generator=gen, device=dev)
+        c = hcoeffs if b.is_head else coeffs
+        # the slab shapes the SPMD path gives B1, held to the plain version
+        got, want = fu.fused_update_cuda(w, v, gs, c), fused_update_ref(
+            w, v, gs, c)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"fused_update on the {b.nbytes} B slab: not bitwise equal "
+                 "to its plain version")
+        ms = cuda_ms(torch, lambda: fu.fused_update_cuda(w, v, gs, c),
+                     iters=10, flush=flush)
+        n = b.num_elements       # read w, v and g gradients; write w, v
+        b_ms, b_by = bound(4 * (g + 4) * n, (4 * g + 6) * n, FP32_FLOP_S)
+        total_ms += ms
+        total_bound += b_ms
+        rows.append(f"{b.nbytes} B{' head' if b.is_head else ''} "
+                    f"{ms:.4f}/{b_ms:.4f} ({b_by})")
+    log(f"[spmd] (c) B1 per bucket slab of the default layout, g={g}, "
+        f"kernel ms / bound ms (CUDA events, L2 flushed): " + "; ".join(rows))
+    log(f"[spmd] (c) B1 on each of the {len(rows)} slabs: bitwise equal "
+        "to the plain version ok")
+    log(f"[spmd] (c) B1 over the {len(rows)} slabs: {total_ms:.4f} ms, "
+        f"bound {total_bound:.4f} ms ({total_bound / total_ms:.0%} of it)")
+    del params, leaves, flush
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernel checks and timings")
+    ap.add_argument("--spmd-nccl", action="store_true",
+                    help="only the multi-device engine's four-rank phase, "
+                         "over NCCL with one rank per card (4 cards)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -1118,6 +1384,11 @@ def main(argv=None) -> None:
 
     smi = phase_env(torch)
     phase_build()
+    if args.spmd_nccl:
+        phase_spmd_ranks(torch, "nccl")
+        log(f"[done] spmd over NCCL only, {time.perf_counter() - t_start:.1f}"
+            " s")
+        return
     errs = phase_check(torch)
     errs.update(phase_check_train(torch))
     times = phase_time(torch)
@@ -1129,6 +1400,10 @@ def main(argv=None) -> None:
     phase_parity(torch)
     launches.update(phase_train(torch))
     phase_train_parity(torch)
+    for part in (phase_spmd_nccl(torch), phase_spmd_ranks(torch)):
+        for name, n in part.items():
+            launches[name] += n
+    phase_time_buckets(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

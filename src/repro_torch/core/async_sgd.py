@@ -108,6 +108,22 @@ def apply_grouped_update(params, grads, mom_buf, *, strategy: str, lr: float,
                               impl=update_impl)
 
 
+def value_and_grad(loss_fn: Callable, params, batch, hooks=None):
+    """``(loss, [grad of each leaf])`` of ``loss_fn(params, batch)`` at
+    detached copies of the leaves, by ``torch.autograd.grad``. ``hooks``:
+    optional per-leaf callables, registered on those leaves, that each
+    receive the leaf's gradient the moment the backward pass produces it
+    (the SPMD step's bucketed exchange starts there)."""
+    flat = [p.detach().requires_grad_(True) for p in T.leaves(params)]
+    if hooks is not None:
+        for x, h in zip(flat, hooks):
+            x.register_hook(h)
+    with torch.enable_grad():
+        loss = loss_fn(T.unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat)
+    return loss.detach(), list(grads)
+
+
 def head_mask_tree(params, head_filter: Optional[Callable]):
     """Bool tree marking merged-FC head leaves (True) — the mask consumed
     by both update strategies."""
@@ -151,21 +167,14 @@ def make_grouped_train_step(loss_fn: Callable, *, num_groups: int, lr: float,
                           weight_decay=weight_decay,
                           group_weights=group_weights)
 
-    def value_and_grad(params, batch):
-        flat = [p.detach().requires_grad_(True) for p in T.leaves(params)]
-        with torch.enable_grad():
-            loss = loss_fn(T.unflatten(params, flat), batch)
-            grads = torch.autograd.grad(loss, flat)
-        return loss.detach(), list(grads)
-
     def per_group_grad(params, batch):
         if grad_accum == 1:
-            return value_and_grad(params, batch)
+            return value_and_grad(loss_fn, params, batch)
         # fp32 sums from the first term on (0 + x == x: the JAX scan's
         # zero-initialised fp32 carry, without the zeros)
         total, acc = None, None
         for a in range(grad_accum):
-            loss, gr = value_and_grad(params,
+            loss, gr = value_and_grad(loss_fn, params,
                                       T.tree_map(lambda x: x[a], batch))
             gr = [x.float() for x in gr]
             total = loss if total is None else total + loss

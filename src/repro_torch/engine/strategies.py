@@ -6,16 +6,26 @@ JAX package's ``engine/strategies.py``, single device):
   grouped-fused  g async compute groups, closed-form fused update
   grouped-scan   g async compute groups, literal O(g) sequential update
 
-``delayed`` (Theorem-1-exact delayed SGD) and ``trace-replay`` are not
-ported yet: asking for them raises ``NotImplementedError`` naming their
-ROADMAP item.
+A strategy's ``build_step`` places the step by the engine's resolved mode
+(``Engine._resolve_exec``): ``"spmd"`` (this rank's step over the group
+mesh, ``engine.spmd``), ``"reference"`` (its single-process bitwise twin)
+or ``"vmap"`` (the g groups' gradients one after another on one device,
+``core.async_sgd``). ``delayed`` (Theorem-1-exact delayed SGD) and
+``trace-replay`` are not ported yet: asking for them raises
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
+import numpy as np
+
+from repro_torch.core import tree as T
 from repro_torch.core.async_sgd import make_grouped_train_step
 from repro_torch.core.compute_groups import group_batch_split
+from repro_torch.engine.spmd import (device_batch_split,
+                                     make_reference_grouped_step,
+                                     make_spmd_grouped_step)
 
 _REGISTRY: Dict[str, "Strategy"] = {}
 _NOT_PORTED = {
@@ -49,18 +59,64 @@ class Strategy:
     """Interface: ``build_step`` returns a per-round step."""
     name = "?"
 
-    def build_step(self, engine, *, g: int, lr: float, momentum: float):
+    def build_step(self, engine, *, g: int, lr: float, momentum: float,
+                   per_group_batch: int):
         raise NotImplementedError(f"{self.name} has no per-round step")
 
 
 class _BuiltStep:
-    """A built step + its batch-preparation recipe."""
+    """A built step and its batch recipe.
 
-    def __init__(self, fn: Callable, prepare: Callable):
-        self.fn = fn              # (params, mom, grouped batch)
-        self.prepare = prepare    # global batch -> (g, ...) grouped batch
+    ``local(batch)``: a global batch (host arrays or device tensors) ->
+    what this rank feeds the step (its (group, data) shard under spmd, the
+    whole batch otherwise); ``prepare``: that batch on the device -> the
+    step's input. ``fn`` is this rank's ``SpmdStep`` under spmd (its
+    ``shard`` / ``unshard`` move full trees to the rank's storage), None on
+    a rank outside the mesh.
+    spmd/reference steps return (g, k) per-shard losses; ``__call__``
+    reduces them on the host in float64, so every mode reports one
+    deterministic scalar."""
+
+    def __init__(self, fn: Callable, prepare: Callable, mode: str, g: int,
+                 k: int, coord=None):
+        self.fn = fn              # (params, mom, prepared batch)
+        self.prepare = prepare    # local device batch -> the step's input
+        self.mode = mode          # "spmd" | "reference" | "vmap"
+        self.g, self.k = g, k
+        self.coord = coord        # this rank's (group, data, mp) under spmd
+
+    @property
+    def idle(self) -> bool:
+        """This rank lies outside the group mesh (a world larger than
+        g·k·mp): it runs no step, and ``Engine`` hands it rank 0's
+        results."""
+        return self.mode == "spmd" and self.fn is None
+
+    def local(self, batch):
+        if self.mode != "spmd":
+            return batch
+        gi, ki, _ = self.coord
+        return T.tree_map(lambda x: x[gi, ki],
+                          device_batch_split(group_batch_split(batch,
+                                                               self.g),
+                                             self.k))
+
+    def shard(self, tree):
+        return tree if self.mode != "spmd" or self.idle else self.fn.shard(
+            tree)
+
+    def unshard(self, tree):
+        return tree if self.mode != "spmd" or self.idle else self.fn.unshard(
+            tree)
+
+    @staticmethod
+    def scalar_loss(loss) -> float:
+        if loss.dim() == 0:
+            return float(loss)
+        return float(np.asarray(loss.detach().cpu(), np.float64).mean())
 
     def __call__(self, params, mom, batch):
+        """-> (params, mom, loss tensor: 0-d under vmap, (g, k) else)."""
         return self.fn(params, mom, self.prepare(batch))
 
 
@@ -68,19 +124,42 @@ class GroupedStrategy(Strategy):
     """g async compute groups; subclasses pick the update application."""
     update = "fused"
 
-    def build_step(self, engine, *, g, lr, momentum):
+    def build_step(self, engine, *, g, lr, momentum, per_group_batch):
         with engine.tracer.span("engine.build_step", strategy=self.name,
-                                g=g, mode=engine.exec_mode):
-            fn = make_grouped_train_step(
-                engine.loss_fn, num_groups=g, lr=lr, momentum=momentum,
-                weight_decay=engine.weight_decay, strategy=self.update,
-                head_filter=engine.head_filter,
-                update_impl=engine.update_impl)
+                                g=g) as sp:
+            mode, k, mesh = engine._resolve_exec(g, per_group_batch)
+            sp.set(mode=mode, k=k)
+            common = dict(lr=lr, momentum=momentum,
+                          weight_decay=engine.weight_decay,
+                          strategy=self.update,
+                          head_filter=engine.head_filter,
+                          update_impl=engine.update_impl)
+            coord = None
+            if mode == "spmd":
+                fn = None       # a rank past the mesh runs no step
+                if mesh.get_coordinate() is not None:
+                    fn = make_spmd_grouped_step(
+                        engine.loss_fn, mesh,
+                        bucket_bytes=engine.bucket_bytes,
+                        sharding_rules=engine.sharding_rules, **common)
+                    coord = fn.coord
 
-            def prepare(batch):
-                return group_batch_split(batch, g)
+                def prepare(batch):
+                    return batch
+            elif mode == "reference":
+                fn = make_reference_grouped_step(engine.loss_fn, g, k,
+                                                 **common)
 
-        return _BuiltStep(fn, prepare)
+                def prepare(batch):
+                    return device_batch_split(group_batch_split(batch, g), k)
+            else:
+                fn = make_grouped_train_step(engine.loss_fn, num_groups=g,
+                                             **common)
+
+                def prepare(batch):
+                    return group_batch_split(batch, g)
+
+        return _BuiltStep(fn, prepare, mode, g, k, coord)
 
 
 @register_strategy
@@ -98,13 +177,7 @@ class GroupedScanStrategy(GroupedStrategy):
 @register_strategy
 class SyncStrategy(GroupedStrategy):
     """Synchronous data-parallel SGD = the grouped step at g=1. Pinned to
-    g=1: asking it for g>1 is a configuration error, not a silent
-    strategy change."""
+    g=1 by ``Engine``: asking it for g>1 is a configuration error, not a
+    silent strategy change."""
     name = "sync"
     update = "fused"
-
-    def build_step(self, engine, *, g, lr, momentum):
-        if g != 1:
-            raise ValueError(f"strategy 'sync' is pinned to g=1, got g={g}; "
-                             "use grouped-fused/grouped-scan for g>1")
-        return super().build_step(engine, g=g, lr=lr, momentum=momentum)

@@ -8,19 +8,28 @@ caffenet; full size or ``--smoke``) with the merged-FC head, plus
 ``--conv-impl lowering`` or ``torch`` and ``--update-impl torch``). The
 port's names: ``--conv-impl lowering_cuda|lowering|lowering_autodiff|torch``
 (default: the config's, ``lowering_cuda``), ``--update-impl cuda|torch``
-(default ``cuda``). LM archs, ``--plan``, ``--replay-trace``, ``--ckpt``,
-``--mp`` and ``--exec-mode spmd|reference`` raise ``NotImplementedError``
-naming their ROADMAP item.
+(default ``cuda``). LM archs, ``--plan`` and ``--replay-trace`` raise
+``NotImplementedError`` naming their ROADMAP item.
+
+Across ranks (``--exec-mode spmd``, or ``auto`` with a world of >= g
+ranks), run under ``torchrun``: every rank makes the same global batches
+from ``--seed`` and trains on its own shard; ``--dist-backend`` is
+``nccl`` on ``cuda`` and ``gloo`` on ``cpu`` unless given, and is always
+the one asked for. Only rank 0 prints and writes files.
 
   python -m repro_torch.launch.train --arch caffenet --batch 256 \\
       --groups 4 --momentum 0.3 --lr 0.01 --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch lenet --smoke \\
       --device cpu --conv-impl lowering --update-impl torch --steps 3
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch lenet --smoke --device cpu --conv-impl lowering \\
+      --update-impl torch --groups 2 --batch 16 --exec-mode spmd --steps 3
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -29,14 +38,13 @@ from repro_torch.core import tree as T
 from repro_torch.data.pipeline import DataConfig, SyntheticImages
 from repro_torch.device import CONV_IMPLS, UPDATE_IMPLS, check_conv_impl, resolve
 from repro_torch.engine import Engine
+from repro_torch.engine.engine import EXEC_MODES
 from repro_torch.models import cnn as C
 from repro_torch.optim.sgd import init_momentum
 
 _NOT_PORTED = {
     "plan": "the heterogeneous planner is ROADMAP Queue A item 14",
     "replay_trace": "trace replay is ROADMAP Queue A item 13",
-    "ckpt": "checkpointing is ROADMAP Queue A item 9",
-    "mp": "the model-parallel mesh axis is ROADMAP Queue A item 8",
 }
 
 
@@ -75,10 +83,27 @@ def main(argv=None):
                     choices=("sync", "grouped-fused", "grouped-scan"),
                     default="grouped-fused",
                     help="engine strategy (sync is the g=1 reduction)")
-    ap.add_argument("--exec-mode", choices=("vmap", "spmd", "reference"),
-                    default="vmap",
-                    help="step placement: one device ('vmap'); the group "
-                         "mesh is not ported yet")
+    ap.add_argument("--mp", type=int, default=1,
+                    help="model-parallel ranks per worker: params and "
+                         "momentum stored as shards over the mesh's 'mp' "
+                         "axis; the world becomes groups*k*mp ranks")
+    ap.add_argument("--exec-mode", choices=EXEC_MODES, default="auto",
+                    help="step placement: the group mesh over the "
+                         "torchrun world when it has >= g ranks (auto), "
+                         "the mesh forced (spmd), its bitwise "
+                         "single-process twin (reference), or one device "
+                         "(vmap)")
+    ap.add_argument("--bucket-bytes", type=int, default=None,
+                    help="slab size target of the SPMD step's overlapped "
+                         "bucketed gradient exchange (0 = whole-tree "
+                         "gather; default engine.spmd.DEFAULT_BUCKET_BYTES)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default="",
+                    help="process-group backend under torchrun (default: "
+                         "nccl on cuda, gloo on cpu)")
+    ap.add_argument("--ckpt", type=str, default="",
+                    help="directory to checkpoint params and momentum to "
+                         "after the last step (npz, the JAX package's "
+                         "names)")
     ap.add_argument("--update-impl", choices=UPDATE_IMPLS, default="cuda",
                     help="leaf path of the fused update: cuda = the kernel, "
                          "torch = the plain version")
@@ -98,12 +123,9 @@ def main(argv=None):
     # flags of the JAX launcher whose subsystems are not ported yet
     ap.add_argument("--plan", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--replay-trace", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--ckpt", default="", help=argparse.SUPPRESS)
-    ap.add_argument("--mp", type=int, default=1, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     for flag, why in _NOT_PORTED.items():
-        val = getattr(args, flag)
-        if val and not (flag == "mp" and val == 1):
+        if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
     if args.arch not in C.CNN_CONFIGS:
         raise NotImplementedError(
@@ -113,32 +135,71 @@ def main(argv=None):
     return _run(args)
 
 
+def _init_dist(args, device):
+    """Join the torchrun world (``WORLD_SIZE`` in the environment) unless a
+    process group is already up. -> (device of this rank, whether this
+    call created the group)."""
+    import torch.distributed as dist
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        return device, False
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    if device.type == "cuda":
+        local = int(os.environ.get("LOCAL_RANK", 0))
+        device = torch.device("cuda", local % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    dist.init_process_group(backend, init_method="env://")
+    return device, True
+
+
 def _run(args):
-    device = resolve(args.device)
+    import torch.distributed as dist
+    device, owned = _init_dist(args, resolve(args.device))
+    try:
+        return _train(args, device)
+    finally:
+        if owned:
+            dist.destroy_process_group()
+
+
+def _train(args, device):
+    from repro_torch.engine.engine import rank_and_world
+    rank = rank_and_world()[0]
+
+    def say(msg):
+        if rank == 0:
+            print(msg, flush=True)
+
     cfg, params, loss_fn, data = _build_workload(args, device)
     mom = init_momentum(params)
     engine = Engine(loss_fn, strategy=args.strategy, num_groups=args.groups,
                     lr=args.lr, momentum=args.momentum,
                     weight_decay=args.weight_decay, head_filter=C.head_filter,
                     update_impl=args.update_impl, exec_mode=args.exec_mode,
-                    device=device)
+                    mp=args.mp, device=device,
+                    **({"bucket_bytes": args.bucket_bytes}
+                       if args.bucket_bytes is not None else {}),
+                    checkpoint_dir=args.ckpt,
+                    checkpoint_every=args.steps if args.ckpt else 0)
     n_params = sum(p.numel() for p in T.leaves(params))
-    print(f"arch={cfg.name} params={n_params} conv={cfg.conv_impl} "
-          f"{engine.describe()}")
+    say(f"arch={cfg.name} params={n_params} conv={cfg.conv_impl} "
+        f"{engine.describe(args.batch // args.groups)}")
     params, mom, losses = engine.run(params, mom, data, steps=args.steps,
-                                     log_every=1)
-    print(f"final loss {np.mean(losses[-5:]):.4f}")
+                                     log_every=1, log=say)
+    say(f"final loss {np.mean(losses[-5:]):.4f}")
     summary = engine.telemetry.summary(batch_size=args.batch)
-    print(f"telemetry: {summary['median_step_ms']:.1f} ms/step median, "
-          f"{summary['examples_per_s']:.0f} examples/s, "
-          f"{summary['data_wait_ms']:.1f} ms/step host data wait")
-    if args.metrics_out:
+    say(f"telemetry: {summary['median_step_ms']:.1f} ms/step median, "
+        f"{summary['examples_per_s']:.0f} examples/s, "
+        f"{summary['data_wait_ms']:.1f} ms/step host data wait")
+    if args.metrics_out and rank == 0:
         from repro_torch.obs import run_metadata
         run = run_metadata(device=device.type, extra={
             "arch": args.arch, "groups": args.groups, "batch": args.batch,
             "steps": args.steps, "strategy": args.strategy})
         n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
         print(f"metrics -> {args.metrics_out} ({n} records)")
+    if args.ckpt:
+        say(f"checkpointed to {args.ckpt}")
     return losses
 
 

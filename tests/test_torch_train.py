@@ -12,8 +12,10 @@
   maximum over these ten runs: 1.79e-6 on a loss and 2.62e-5 on a
   parameter, both caffenet-smoke at g=1; every other run stays within
   1.2e-7 and 3.0e-8.
-- the engine's and launcher's refusals (unported modes, kernel arms on
-  the CPU) and the launcher on the CPU.
+- the engine's and launcher's refusals (unported strategies and flags,
+  the group mesh without a process group or with too few ranks, kernel
+  arms on the CPU) and the launcher on the CPU. The SPMD engine and the
+  launcher across ranks are ``test_torch_spmd*.py``'s.
 """
 import dataclasses
 import os
@@ -163,8 +165,13 @@ def test_sync_engine_step_is_the_g1_round():
 
 def test_engine_refusals():
     loss_fn = lambda p, b: 0.0                               # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(loss_fn, exec_mode="spmd", device="cpu", update_impl="torch")
+    with pytest.raises(RuntimeError, match="initialized process group"):
+        Engine(loss_fn, exec_mode="spmd", device="cpu",
+               update_impl="torch").describe()
+    with pytest.raises(ValueError, match="no model-parallel path"):
+        Engine(loss_fn, mp=2, device="cpu", update_impl="torch")
+    with pytest.raises(ValueError, match="unknown exec_mode"):
+        Engine(loss_fn, exec_mode="mesh", device="cpu", update_impl="torch")
     with pytest.raises(NotImplementedError, match="item 5"):
         Engine(loss_fn, strategy="delayed", device="cpu", update_impl="torch")
     with pytest.raises(NotImplementedError, match="item 13"):
@@ -204,12 +211,14 @@ def test_launcher_trains_smoke_lenet_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "qwen2-7b"], "item 10"), (["--plan"], "item 14"),
-    (["--exec-mode", "spmd"], "item 8"), (["--mp", "2"], "item 8"),
+    (["--exec-mode", "spmd"], "initialized process group"),
+    (["--mp", "2"], "needs >= 2 ranks"),
     (["--conv-impl", "lowering_cuda", "--update-impl", "torch"],
      "needs CUDA tensors")])
 def test_launcher_refusals(extra, match):
     from repro_torch.launch import train
     argv = ["--arch", "lenet", "--smoke", "--device", "cpu", "--conv-impl",
             "lowering", "--update-impl", "torch", "--steps", "1"]
-    with pytest.raises((NotImplementedError, ValueError), match=match):
+    with pytest.raises((NotImplementedError, ValueError, RuntimeError),
+                       match=match):
         train.main(argv + extra)
