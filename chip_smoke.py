@@ -82,7 +82,25 @@ passed over, nothing falls back to the CPU):
    times under gloo (a correctness run: gloo stages through the host),
    ``torch.cuda.device_count()``;
 11. B1 once per bucket slab of that layout (g = 4), timed against its
-   bytes bound.
+   bytes bound;
+12. LM training at full qwen2-7b width (d_model 3584, 28/4 heads, d_ff
+   18944, vocab 152064; 2 of its 28 layers, the run's ``reduced`` list),
+   fp32 params and momentum from seed 0 on the host, bf16 compute, remat
+   on, the ``SyntheticLM`` stream: (a) ``Engine`` at g = 4
+   ``grouped-fused``, lr 0.05, mu 0.3, batch 16 x seq 512, 1 warm-up + 3
+   rounds with the launch counts zeroed before and checked after (B1 once
+   a leaf a round, 15, and nothing else), every loss finite, round ms,
+   tokens/s and peak memory beside the reckoned bytes, then
+   ``torch.profiler`` over one round; (b) on that round's own (g, ...)
+   gradient stacks, B1 bitwise its plain version on all 15 leaves and
+   timed over them against its bytes bound; (c) ``exec_mode="spmd"`` over
+   NCCL at world size 1, ``sync``, batch 4 x 512, 2 rounds, bitwise the
+   ``"reference"`` run, and its bucket layout; (d)
+   ``steps.make_train_step`` with ``grad_accum=2`` at batch 2 x seq 4096
+   (``chunked_attention`` under autograd), 2 steps; ``make_prefill_step``
+   through the flash kernel and the plain arm at 4 x 512, each held to the
+   fp32 prefill as in phase 6; ``make_decode_step`` for 4 tokens from
+   ``init_cache``.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -1006,10 +1024,12 @@ def _train_run(torch, engine, params, mom, data, rounds: int, label: str):
     return params, mom, got
 
 
-def phase_train_profile(torch, engine, params, mom, batch) -> None:
-    """One full-width round: wall on the host clock (no profiler), device
-    busy time (the sum of kernel times under ``torch.profiler``), the
-    device's idle share, and the kernels that take the time."""
+def phase_train_profile(torch, engine, params, mom, batch, what: str,
+                        names) -> None:
+    """One round: wall on the host clock (no profiler), device busy time
+    (the sum of kernel times under ``torch.profiler``), the device's idle
+    share, and the kernels that take the time (the port's ``names``
+    whether or not they are among them)."""
     from torch.profiler import ProfilerActivity, profile
     engine.step(params, mom, batch)                        # warm
     t0 = time.perf_counter()
@@ -1027,14 +1047,12 @@ def phase_train_profile(torch, engine, params, mom, batch) -> None:
         kernels.append((us / 1e3, e.count, e.key))
     busy = sum(k[0] for k in kernels)
     kernels.sort(reverse=True)
-    log(f"[profile] full-width CaffeNet round, batch {CNN_BATCH}, "
-        f"g={engine.num_groups}: wall {wall_ms:.2f} ms (host clock, no "
-        f"profiler), device busy {busy:.2f} ms, idle share "
+    log(f"[profile] {what}, g={engine.num_groups}: wall {wall_ms:.2f} ms "
+        f"(host clock, no profiler), device busy {busy:.2f} ms, idle share "
         f"{1 - busy / wall_ms:.3f}, {sum(k[1] for k in kernels)} kernels")
     for ms, n, name in kernels[:10]:
         log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:80]}")
-    log_port_kernels(kernels, ("lowering_conv_kernel", "wgrad", "dgrad",
-                               "fused_update"))
+    log_port_kernels(kernels, names)
 
 
 def phase_train(torch) -> dict:
@@ -1070,7 +1088,10 @@ def phase_train(torch) -> dict:
     params, mom, c4 = _train_run(torch, eng, params, init_momentum(params),
                                  data, 6, "g4")
     batch = next(prefetch(data.batches(1), device=dev))
-    phase_train_profile(torch, eng, params, mom, batch)
+    phase_train_profile(torch, eng, params, mom, batch,
+                        f"full-width CaffeNet round, batch {CNN_BATCH}",
+                        ("lowering_conv_kernel", "wgrad", "dgrad",
+                         "fused_update"))
     sync = Engine(loss_fn, strategy="sync", num_groups=1, **kw)
     params, mom, c1 = _train_run(torch, sync, params, mom, data, 3, "sync")
     log(f"[train] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
@@ -1126,23 +1147,19 @@ SPMD_MESHES = ((4, 1, 1), (2, 2, 1), (2, 1, 2))
 SPMD_WORLD = 4
 
 
-def _spmd_pair(torch, cfg, params, host, *, g, mp, strategy, num_devices,
-               device, update_impl) -> dict:
+def _spmd_pair(torch, loss_fn, head_filter, params, host, *, g, mp,
+               strategy, num_devices, device, update_impl,
+               lr: float = 0.01) -> dict:
     """``Engine(exec_mode="spmd")`` over ``host`` (global batches), its
     launch counts zeroed just before and read just after, then
     ``exec_mode="reference"`` over the same rounds and (g, k); whether
     params, momentum, losses and per-shard losses are the same bits."""
     from repro_torch.core import tree as T
     from repro_torch.engine import Engine
-    from repro_torch.models import cnn as C
     from repro_torch.optim.sgd import init_momentum
-    kw = dict(strategy=strategy, num_groups=g, lr=0.01, momentum=0.3,
-              weight_decay=5e-4, head_filter=C.head_filter,
+    kw = dict(strategy=strategy, num_groups=g, lr=lr, momentum=0.3,
+              weight_decay=5e-4, head_filter=head_filter,
               update_impl=update_impl, mp=mp, device=device)
-
-    def loss_fn(p, b):
-        return C.loss_fn(p, b, cfg)
-
     mom = init_momentum(params)
     counts = _train_counts()
     eng = Engine(loss_fn, exec_mode="spmd", **kw)
@@ -1152,7 +1169,7 @@ def _spmd_pair(torch, cfg, params, host, *, g, mp, strategy, num_devices,
     if device.type == "cuda":
         torch.cuda.synchronize()
     got = {k: fn.launches for k, fn in counts.items()}
-    built = eng._built_step(CNN_BATCH // g)
+    built = eng._built_step(T.leaves(host[0])[0].shape[0] // g)
     ref = Engine(loss_fn, exec_mode="reference", num_devices=num_devices,
                  **kw)
     rp, rv, rlosses = ref.run(params, mom, iter(host), steps=len(host))
@@ -1208,7 +1225,8 @@ def phase_spmd_nccl(torch) -> dict:
         dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
                                 rank=0, world_size=1)
         try:
-            res = _spmd_pair(torch, cfg, params, host, g=1, mp=1,
+            res = _spmd_pair(torch, lambda p, b: C.loss_fn(p, b, cfg),
+                             C.head_filter, params, host, g=1, mp=1,
                              strategy="sync", num_devices=1, device=dev,
                              update_impl="cuda")
         finally:
@@ -1242,7 +1260,9 @@ def _spmd_rank(rank: int, world: int, tmp: str, meshes, backend: str):
         host = _host_batches(C.CAFFENET, SPMD_ROUNDS)
         out = {}
         for g, k, mp in meshes:
-            res = _spmd_pair(torch, C.CAFFENET, params, host, g=g, mp=mp,
+            res = _spmd_pair(torch,
+                             lambda p, b: C.loss_fn(p, b, C.CAFFENET),
+                             C.head_filter, params, host, g=g, mp=mp,
                              strategy="grouped-fused", num_devices=world,
                              device=dev, update_impl="cuda")
             if tuple(res["mesh"]) != (g, k, mp):
@@ -1361,6 +1381,319 @@ def phase_time_buckets(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# LM training: qwen2-7b at full width, 2 of its 28 layers
+# ---------------------------------------------------------------------------
+
+LM_LAYERS = 2                  # the depth cut, the run's ``reduced`` list
+LM_GROUPS, LM_BATCH, LM_SEQ = 4, 16, 512   # 4 sequences a group a round
+LM_ROUNDS = 3                  # after one warm-up round
+LM_LR, LM_MU = 0.05, 0.3       # the JAX launcher's own LM example
+LM_SPMD_BATCH, LM_SPMD_ROUNDS = 4, 2
+LM_LONG_SEQ, LM_LONG_BATCH = 4096, 2       # chunked attention under autograd
+
+
+def lm_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen2-7b"), num_layers=LM_LAYERS)
+
+
+def _lm_stream(cfg, batch: int, seq: int):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(batch_size=batch, seq_len=seq,
+                                  vocab_size=cfg.vocab_size, seed=0))
+
+
+def _free(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_host_params(torch, cfg):
+    """fp32 params from seed 0 (drawn on the card, where it takes
+    milliseconds) and zero momentum, both on the host: the engine's copy is
+    then the only one on the card."""
+    from repro_torch.core import tree as T
+    from repro_torch.models import transformer as M
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    params = M.init_params(gen, cfg)
+    host = T.tree_map(lambda t: t.cpu(), params)
+    del params
+    _free(torch)
+    mom = T.tree_map(torch.zeros_like, host)
+    n = sum(t.numel() for t in T.leaves(host))
+    log(f"[lm] qwen2-7b d_model {cfg.d_model} heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} head_dim {cfg.resolved_head_dim} d_ff "
+        f"{cfg.d_ff} vocab {cfg.vocab_size}, {cfg.num_layers} layers "
+        f"(reduced: num_layers 28 -> {cfg.num_layers}), compute "
+        f"{cfg.compute_dtype}, remat {cfg.remat}: {n} fp32 params in "
+        f"{len(T.leaves(host))} leaves ({4 * n / 1e9:.2f} GB), params and "
+        f"momentum on the host in {time.perf_counter() - t0:.1f} s")
+    return host, mom, n
+
+
+def _all_counts():
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.paged_attention import ops as pa
+    return {**_train_counts(), "flash": fa.flash_attention,
+            "paged": pa.paged_attention}
+
+
+def phase_lm_train(torch, cfg, host, mom, n_params) -> dict:
+    """(a) ``Engine`` trains the LM at g = 4 ``grouped-fused`` through B1:
+    one warm-up round and ``LM_ROUNDS``, launch counts zeroed before the
+    run and checked after it (B1 once a leaf a round, nothing else), then
+    one profiled round. Returns the run's launches, the params and
+    momentum it ends on, and a round's batch."""
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import prefetch
+    from repro_torch.engine import Engine
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    g, rounds = LM_GROUPS, 1 + LM_ROUNDS
+    eng = Engine(lambda p, b: M.lm_loss(p, b, cfg), strategy="grouped-fused",
+                 num_groups=g, lr=LM_LR, momentum=LM_MU, update_impl="cuda",
+                 device=dev)
+    log(f"[lm:a] {eng.describe(LM_BATCH // g)} batch {LM_BATCH} x seq "
+        f"{LM_SEQ} ({LM_BATCH * LM_SEQ} tokens a round)")
+    data = _lm_stream(cfg, LM_BATCH, LM_SEQ)
+    counts = _all_counts()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counts.values():
+        fn.launches = 0
+    params, mom, losses = eng.run(host, mom, data.batches(rounds),
+                                  steps=rounds, log_every=1,
+                                  log=lambda m: log(f"[lm:a] {m}"))
+    torch.cuda.synchronize()
+    got = {k: fn.launches for k, fn in counts.items()}
+    n_leaves = len(T.leaves(params))
+    want = {k: 0 for k in got}
+    want["fused_update"] = n_leaves * rounds
+    log(f"[lm:a] {rounds} rounds: launches {got} (want {want})")
+    if got != want:
+        fail(f"LM g={g} run: launch counts {got} != {want}")
+    if len(losses) != rounds or not all(math.isfinite(x) for x in losses):
+        fail(f"LM g={g} run: losses {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    tel = eng.telemetry
+    steady = tel.step_s[tel.skip:]
+    med = statistics.median(steady)
+    tokens = LM_BATCH * LM_SEQ
+    logits = (LM_BATCH // g) * LM_SEQ * cfg.vocab_size
+    log(f"[lm:a] losses {[round(x, 4) for x in losses]}; round ms (host "
+        f"clock, after the warm-up round) median {med * 1e3:.1f} min "
+        f"{min(steady) * 1e3:.1f} max {max(steady) * 1e3:.1f}; tokens/s "
+        f"{tokens / med:.1f}; first round {tel.step_s[0] * 1e3:.1f} ms; "
+        f"host data wait median "
+        f"{statistics.median(tel.data_s[tel.skip:]) * 1e3:.1f} ms")
+    log(f"[lm:a] peak memory {peak / 1e9:.2f} GB; reckoned: (4 + g) x P x "
+        f"4 B = {(4 + g) * n_params * 4 / 1e9:.2f} GB at the update (params "
+        f"and momentum in and out, g gradient stacks) plus a group's fp32 "
+        f"logits, log-softmax and their gradients ({logits} elements, "
+        f"{4 * 4 * logits / 1e9:.2f} GB)")
+    batch = next(prefetch(data.batches(1), device=dev))
+    phase_train_profile(
+        torch, eng, params, mom, batch,
+        f"qwen2-7b {cfg.num_layers}-layer round, batch {LM_BATCH} x seq "
+        f"{LM_SEQ}", ("fused_update",))
+    return {"fused_update": got["fused_update"], "params": params,
+            "mom": mom, "batch": batch}
+
+
+def phase_lm_update(torch, cfg, params, mom, batch) -> None:
+    """(b) B1 at the LM round's leaves: the round's own (g, ...) gradient
+    stacks, the ``"cuda"`` and ``"torch"`` update arms bitwise equal on
+    every leaf (params and momentum), and B1 over the leaves timed against
+    its bytes bound."""
+    from repro_torch.core import tree as T
+    from repro_torch.core.async_sgd import stacked_group_grads, value_and_grad
+    from repro_torch.core.compute_groups import group_batch_split
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.models import transformer as M
+    from repro_torch.optim.closed_form import grouped_coeffs
+    g = LM_GROUPS
+    _, stacks = stacked_group_grads(
+        lambda p, b: value_and_grad(lambda q, c: M.lm_loss(q, c, cfg), p, b),
+        params, group_batch_split(batch, g), g)
+    coeffs = grouped_coeffs(g, lr=LM_LR, momentum=LM_MU)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32,
+                        device=torch.device("cuda"))
+    total_ms = n = 0
+    rows = []
+    for (path, w), v, gs in zip(T.leaves_with_path(params), T.leaves(mom),
+                                stacks):
+        got = fu.fused_update(w, v, gs, coeffs=coeffs, impl="cuda")
+        want = fu.fused_update(w, v, gs, coeffs=coeffs, impl="torch")
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"fused_update on LM leaf {path}: not bitwise equal to "
+                 "its plain version")
+        del got, want
+        ms = cuda_ms(torch, lambda: fu.fused_update_cuda(w, v, gs, coeffs),
+                     iters=5, flush=flush)
+        total_ms += ms
+        n += w.numel()
+        rows.append(f"{'.'.join(map(str, path))} {tuple(w.shape)} "
+                    f"{ms:.4f}")
+    b_ms, b_by = bound(4 * (g + 4) * n, (4 * g + 6) * n, FP32_FLOP_S)
+    log(f"[lm:b] B1 on each of the {len(rows)} leaves of the round's own "
+        f"g={g} gradient stacks: cuda and torch arms bitwise equal (params "
+        "and momentum) ok")
+    log(f"[lm:b] B1 per leaf, kernel ms (CUDA events, L2 flushed): "
+        + "; ".join(rows))
+    log(f"[lm:b] B1 over the {len(rows)} leaves ({n} elements): "
+        f"{total_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; (2 + g + 2) x "
+        f"4 B x P / {HBM_BYTES_S / 1e12:.2f} TB/s), "
+        f"{b_ms / total_ms:.0%} of it")
+    del stacks, flush
+
+
+def phase_lm_spmd(torch, cfg, host) -> dict:
+    """(c) The SPMD engine over NCCL at world size 1: ``sync``, g = 1,
+    bitwise its ``exec_mode="reference"`` twin on the LM; the bucket
+    layout."""
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    data = list(_lm_stream(cfg, LM_SPMD_BATCH, LM_SEQ).batches(
+        LM_SPMD_ROUNDS))
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rdv",
+                                rank=0, world_size=1)
+        try:
+            res = _spmd_pair(torch, lambda p, b: M.lm_loss(p, b, cfg), None,
+                             host, data, g=1, mp=1, strategy="sync",
+                             num_devices=1, device=dev, update_impl="cuda",
+                             lr=LM_LR)
+        finally:
+            dist.destroy_process_group()
+    want = {k: 0 for k in res["counts"]}
+    want["fused_update"] = len(res["buckets"]) * LM_SPMD_ROUNDS
+    if res["bad"]:
+        fail(f"LM spmd nccl world 1: differs from the reference at "
+             f"{res['bad'][:5]}")
+    if res["counts"] != want:
+        fail(f"LM spmd nccl world 1: launch counts {res['counts']} != "
+             f"{want}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        fail(f"LM spmd nccl world 1: losses {res['losses']}")
+    layout = res["buckets"]
+    log(f"[lm:c] NCCL, world size 1, mesh {tuple(res['mesh'])}, sync, "
+        f"batch {LM_SPMD_BATCH} x seq {LM_SEQ}, {LM_SPMD_ROUNDS} rounds: "
+        f"params, momentum, losses {res['losses']} and per-shard losses "
+        f"bitwise the reference; launches {res['counts']}")
+    log(f"[lm:c] buckets: {len(layout)} a round, bytes "
+        f"{[b[0] for b in layout]}, leaves {[b[2] for b in layout]}; round "
+        f"ms (host clock) {[round(x, 1) for x in res['round_ms']]}")
+    return {"fused_update": res["counts"]["fused_update"]}
+
+
+def phase_lm_steps(torch, cfg, host) -> dict:
+    """(d) ``steps.make_train_step`` with ``grad_accum=2`` at seq 4096
+    (``chunked_attention`` under autograd, remat on), then
+    ``make_prefill_step`` through both attention arms against the fp32
+    prefill, and ``make_decode_step`` from ``init_cache``."""
+    from repro_torch.configs import InputShape, TrainConfig
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as M
+    from repro_torch.optim.sgd import init_momentum
+    dev = torch.device("cuda")
+    if LM_LONG_SEQ < L.CHUNKED_ATTN_THRESHOLD:
+        fail("the long step must reach chunked_attention")
+    params = T.tree_map(lambda t: t.to(dev), host)
+    mom = init_momentum(params)
+    tc = TrainConfig(learning_rate=LM_LR, momentum=LM_MU, weight_decay=5e-4,
+                     grad_accum=2)
+    step = S.make_train_step(cfg, tc, InputShape(
+        "train", LM_LONG_SEQ, LM_LONG_BATCH, "train"))
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for b in _lm_stream(cfg, LM_LONG_BATCH, LM_LONG_SEQ).batches(2):
+        micro = {k: torch.from_numpy(v).to(dev).reshape(
+            tc.grad_accum, LM_LONG_BATCH // tc.grad_accum, -1)
+            for k, v in b.items()}
+        t0 = time.perf_counter()
+        params, mom, loss = step(params, mom, micro)
+        losses.append(float(loss))        # synchronizes
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"make_train_step at seq {LM_LONG_SEQ}: losses {losses}")
+    log(f"[lm:d] make_train_step grad_accum=2, weight decay 5e-4, batch "
+        f"{LM_LONG_BATCH} x seq {LM_LONG_SEQ} (chunked_attention under "
+        f"autograd): losses {[round(x, 4) for x in losses]}, step ms (host "
+        f"clock) {[round(x, 1) for x in times]}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del mom
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    pshape = InputShape("prefill", LM_SEQ, LM_SPMD_BATCH, "prefill")
+    toks = next(_lm_stream(cfg, LM_SPMD_BATCH, LM_SEQ).batches(1))["tokens"]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    truth = S.make_prefill_step(dataclasses.replace(
+        cfg, compute_dtype="float32"), pshape)(params, batch)[0].float()
+    out = {"torch": S.make_prefill_step(cfg, pshape)(params, batch)}
+    fa.flash_attention.launches = 0
+    out["cuda"] = S.make_prefill_step(cfg, pshape, attn_impl="cuda")(
+        params, batch)
+    torch.cuda.synchronize()
+    flash = fa.flash_attention.launches
+    if flash != cfg.num_layers:
+        fail(f"prefill step: {flash} flash launches, want {cfg.num_layers}")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    err = {k: rel(v[0].float(), truth) for k, v in out.items()}
+    if not torch.isfinite(out["cuda"][0]).all() or (
+            err["cuda"] > err["torch"] or err["cuda"] > 2 * BF16_REL_RMS):
+        fail(f"prefill step bf16 last-position logits: relative RMS error "
+             f"against fp32 {err['cuda']:.3e} (cuda) vs {err['torch']:.3e} "
+             f"(torch); the cuda arm must be no further and within "
+             f"{2 * BF16_REL_RMS}")
+    log(f"[lm:d] make_prefill_step batch {LM_SPMD_BATCH} x {LM_SEQ}: "
+        f"last-position logits rel_rms against the fp32 prefill cuda="
+        f"{err['cuda']:.3e} torch={err['torch']:.3e} (cuda must be <= torch "
+        f"and <= {2 * BF16_REL_RMS}); {flash} flash launches ok")
+    del out, truth
+    decode = S.make_decode_step(cfg, InputShape("decode", LM_SEQ,
+                                                LM_SPMD_BATCH, "decode"))
+    cache = M.init_cache(cfg, LM_SPMD_BATCH, LM_SEQ, device=dev)
+    tok = batch["tokens"][:, :1]
+    seq = []
+    for pos in range(4):
+        tok, cache = decode(params, cache, {"tokens": tok}, pos)
+        seq.append(tok)
+    seq = torch.cat(seq, dim=1)
+    if seq.dtype != torch.int32 or seq.shape != (LM_SPMD_BATCH, 4) or not (
+            (seq >= 0) & (seq < cfg.vocab_size)).all():
+        fail(f"decode step: tokens {seq}")
+    log(f"[lm:d] make_decode_step from init_cache, 4 tokens: "
+        f"{seq.tolist()} ok")
+    return {"flash": flash}
+
+
+def phase_lm(torch) -> dict:
+    """LM training at full qwen2-7b width: (a) the engine's g = 4 round,
+    (b) B1 at its leaves, (c) the SPMD engine over NCCL, (d) the steps."""
+    cfg = lm_config()
+    host, mom, n = lm_host_params(torch, cfg)
+    a = phase_lm_train(torch, cfg, host, mom, n)
+    phase_lm_update(torch, cfg, a["params"], a["mom"], a["batch"])
+    launches = {"fused_update": a["fused_update"]}
+    del a
+    _free(torch)
+    c = phase_lm_spmd(torch, cfg, host)
+    launches["fused_update"] += c["fused_update"]
+    _free(torch)
+    launches.update(phase_lm_steps(torch, cfg, host))
+    _free(torch)
+    return launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1404,6 +1737,10 @@ def main(argv=None) -> None:
         for name, n in part.items():
             launches[name] += n
     phase_time_buckets(torch)
+    _free(torch)
+    lm = phase_lm(torch)
+    launches["fused_update"] += lm["fused_update"]
+    launches["flash"] += lm["flash"]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

@@ -124,6 +124,53 @@ def value_and_grad(loss_fn: Callable, params, batch, hooks=None):
     return loss.detach(), list(grads)
 
 
+def accumulated_value_and_grad(loss_fn: Callable, params, batch,
+                               grad_accum: int = 1):
+    """``value_and_grad`` over ``grad_accum`` microbatches (the leading
+    axis of every ``batch`` leaf when ``grad_accum > 1``): fp32 sums of the
+    losses and gradients from the first term on (0 + x == x: the JAX
+    scan's zero-initialised fp32 carry, without the zeros), each divided
+    by ``grad_accum``."""
+    if grad_accum == 1:
+        return value_and_grad(loss_fn, params, batch)
+    total, acc = None, None
+    for a in range(grad_accum):
+        loss, gr = value_and_grad(loss_fn, params,
+                                  T.tree_map(lambda x: x[a], batch))
+        if acc is None:
+            total, acc = loss, [x.float() for x in gr]
+            continue
+        total = total + loss
+        # leaf by leaf, each old sum dropped as its new one exists (not in
+        # place: autograd may hand two leaves one gradient tensor)
+        for j in range(len(acc)):
+            acc[j], gr[j] = acc[j] + gr[j], None
+    for j in range(len(acc)):
+        acc[j] = acc[j] / grad_accum
+    return total / grad_accum, acc
+
+
+def stacked_group_grads(grad_fn: Callable, params, batches, g: int):
+    """Every group's gradient at the same ``params``, one group at a time:
+    ``grad_fn(params, batch_i) -> (loss, [grad of each leaf])`` on
+    ``batch_i``, the i-th slice of every ``batches`` leaf. Returns the g
+    losses and, per leaf, its ``(g, ...)`` stack. Each leaf's stack is
+    allocated when the first group's gradient arrives, and each group's
+    gradient is copied into its slot and dropped at once, so g gradient
+    copies exist at the peak, not the 2g of stacking kept lists."""
+    losses, stacks = [], None
+    for i in range(g):
+        loss, gr = grad_fn(params, T.tree_map(lambda x: x[i], batches))
+        losses.append(loss)
+        if stacks is None:
+            stacks = [torch.empty((g,) + tuple(x.shape), dtype=x.dtype,
+                                  device=x.device) for x in gr]
+        for j in range(len(gr)):
+            stacks[j][i].copy_(gr[j])
+            gr[j] = None
+    return losses, stacks
+
+
 def head_mask_tree(params, head_filter: Optional[Callable]):
     """Bool tree marking merged-FC head leaves (True) — the mask consumed
     by both update strategies."""
@@ -149,8 +196,9 @@ def make_grouped_train_step(loss_fn: Callable, *, num_groups: int, lr: float,
     over the groups with ``torch.autograd.grad`` stands for the JAX
     ``jax.vmap`` (``torch.func.vmap`` cannot enter an ``autograd.Function``
     whose kernels are called through ``ctypes``), and each leaf's g
-    gradients are stacked to ``(g, ...)``. ``head_filter(path) -> bool``
-    marks head ("FC-phase") params: merged-FC semantics. ``strategy``:
+    gradients are stacked to ``(g, ...)`` (``stacked_group_grads``).
+    ``head_filter(path) -> bool`` marks head ("FC-phase") params:
+    merged-FC semantics. ``strategy``:
     "fused" (the closed form in one pass, leaf path ``update_impl``) or
     "scan" (the literal sequential reference). ``group_weights``: per-group
     batch shares.
@@ -168,29 +216,14 @@ def make_grouped_train_step(loss_fn: Callable, *, num_groups: int, lr: float,
                           group_weights=group_weights)
 
     def per_group_grad(params, batch):
-        if grad_accum == 1:
-            return value_and_grad(loss_fn, params, batch)
-        # fp32 sums from the first term on (0 + x == x: the JAX scan's
-        # zero-initialised fp32 carry, without the zeros)
-        total, acc = None, None
-        for a in range(grad_accum):
-            loss, gr = value_and_grad(loss_fn, params,
-                                      T.tree_map(lambda x: x[a], batch))
-            gr = [x.float() for x in gr]
-            total = loss if total is None else total + loss
-            acc = gr if acc is None else [x + y for x, y in zip(acc, gr)]
-        return total / grad_accum, [x / grad_accum for x in acc]
+        return accumulated_value_and_grad(loss_fn, params, batch,
+                                          grad_accum)
 
     def step(params, mom_buf, batches):
         # all group gradients at round-start params, one group at a time
-        losses, per_leaf = [], None
-        for i in range(g):
-            loss, gr = per_group_grad(params,
-                                      T.tree_map(lambda x: x[i], batches))
-            losses.append(loss)
-            per_leaf = [[x] for x in gr] if per_leaf is None else [
-                lst + [x] for lst, x in zip(per_leaf, gr)]
-        grads = T.unflatten(params, [torch.stack(lst) for lst in per_leaf])
+        losses, stacks = stacked_group_grads(per_group_grad, params,
+                                             batches, g)
+        grads = T.unflatten(params, stacks)
         params, mom_buf = apply_grouped_update(
             params, grads, mom_buf, strategy=strategy, lr=lr,
             momentum=momentum, weight_decay=weight_decay,

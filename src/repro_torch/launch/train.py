@@ -1,15 +1,20 @@
 """Training launcher: argument parsing in front of the engine
-(``repro_torch.engine``) for the paper's CNN workloads, on the card by
-default.
+(``repro_torch.engine``), on the card by default.
 
-The JAX package's ``launch/train.py`` for the CNN archs (lenet, cifarnet,
-caffenet; full size or ``--smoke``) with the merged-FC head, plus
+The JAX package's ``launch/train.py`` for the token LMs of the dense
+family (``--arch qwen2-7b``, the default, and the other dense configs;
+``--seq`` tokens a sequence from the ``SyntheticLM`` stream, ``lm_loss``,
+no merged-FC head) and for the paper's CNN archs (lenet, cifarnet,
+caffenet, with the merged-FC head), full size or ``--smoke``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain path and then needs
-``--conv-impl lowering`` or ``torch`` and ``--update-impl torch``). The
-port's names: ``--conv-impl lowering_cuda|lowering|lowering_autodiff|torch``
-(default: the config's, ``lowering_cuda``), ``--update-impl cuda|torch``
-(default ``cuda``). LM archs, ``--plan`` and ``--replay-trace`` raise
-``NotImplementedError`` naming their ROADMAP item.
+``--update-impl torch``, and for a CNN ``--conv-impl lowering`` or
+``torch``). The port's names: ``--conv-impl
+lowering_cuda|lowering|lowering_autodiff|torch`` (CNN archs; default: the
+config's, ``lowering_cuda``), ``--update-impl cuda|torch`` (default
+``cuda``). As in the JAX launcher, ``encdec`` and ``vlm`` archs exit (their
+modality-stub variants are examples); the MoE, SSM and hybrid families
+raise ``NotImplementedError`` naming ROADMAP Queue A item 11, and
+``--plan`` and ``--replay-trace`` their items.
 
 Across ranks (``--exec-mode spmd``, or ``auto`` with a world of >= g
 ranks), run under ``torchrun``: every rank makes the same global batches
@@ -17,10 +22,13 @@ from ``--seed`` and trains on its own shard; ``--dist-backend`` is
 ``nccl`` on ``cuda`` and ``gloo`` on ``cpu`` unless given, and is always
 the one asked for. Only rank 0 prints and writes files.
 
+  python -m repro_torch.launch.train --arch qwen2-7b --smoke --groups 4 \\
+      --momentum 0.3 --lr 0.05 --steps 60
   python -m repro_torch.launch.train --arch caffenet --batch 256 \\
       --groups 4 --momentum 0.3 --lr 0.01 --steps 20
-  PYTHONPATH=src python -m repro_torch.launch.train --arch lenet --smoke \\
-      --device cpu --conv-impl lowering --update-impl torch --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
+      --smoke --device cpu --update-impl torch --groups 2 --seq 32 \\
+      --batch 8 --steps 3
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch lenet --smoke --device cpu --conv-impl lowering \\
       --update-impl torch --groups 2 --batch 16 --exec-mode spmd --steps 3
@@ -34,12 +42,14 @@ import os
 import numpy as np
 import torch
 
+from repro_torch.configs import get_config, get_smoke_config, list_archs
 from repro_torch.core import tree as T
-from repro_torch.data.pipeline import DataConfig, SyntheticImages
+from repro_torch.data.pipeline import DataConfig, SyntheticImages, SyntheticLM
 from repro_torch.device import CONV_IMPLS, UPDATE_IMPLS, check_conv_impl, resolve
 from repro_torch.engine import Engine
 from repro_torch.engine.engine import EXEC_MODES
 from repro_torch.models import cnn as C
+from repro_torch.models import transformer as M
 from repro_torch.optim.sgd import init_momentum
 
 _NOT_PORTED = {
@@ -49,31 +59,48 @@ _NOT_PORTED = {
 
 
 def _build_workload(args, device):
-    """(cfg, params, loss_fn, data_iterable) for a CNN --arch."""
-    cfg = C.get_cnn_smoke_config(args.arch) if args.smoke \
-        else C.get_cnn_config(args.arch)
-    if args.conv_impl:
-        cfg = dataclasses.replace(cfg, conv_impl=args.conv_impl)
-    check_conv_impl(cfg.conv_impl, device)
+    """(cfg, params, loss_fn, data_iterable, head_filter) per --arch."""
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = C.init_params(gen, cfg)
-    data = SyntheticImages(DataConfig(
-        batch_size=args.batch, image_size=cfg.image_size,
-        channels=cfg.in_channels, num_classes=cfg.num_classes,
-        seed=args.seed))
-    return (cfg, params, lambda p, b: C.loss_fn(p, b, cfg),
-            data.batches(args.steps))
+    if args.arch in C.CNN_CONFIGS:
+        cfg = C.get_cnn_smoke_config(args.arch) if args.smoke \
+            else C.get_cnn_config(args.arch)
+        if args.conv_impl:
+            cfg = dataclasses.replace(cfg, conv_impl=args.conv_impl)
+        check_conv_impl(cfg.conv_impl, device)
+        data = SyntheticImages(DataConfig(
+            batch_size=args.batch, image_size=cfg.image_size,
+            channels=cfg.in_channels, num_classes=cfg.num_classes,
+            seed=args.seed))
+        return (cfg, C.init_params(gen, cfg),
+                lambda p, b: C.loss_fn(p, b, cfg), data.batches(args.steps),
+                C.head_filter)
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.arch_type in ("encdec", "vlm"):
+        raise SystemExit("train.py drives token-LM and CNN archs; see "
+                         "examples/ for the modality-stub variants")
+    M.require_dense(cfg)
+    if args.conv_impl:
+        raise ValueError(f"--conv-impl applies to CNN archs "
+                         f"({', '.join(sorted(C.CNN_CONFIGS))}), not "
+                         f"{args.arch}")
+    data = SyntheticLM(DataConfig(batch_size=args.batch, seq_len=args.seq,
+                                  vocab_size=cfg.vocab_size, seed=args.seed))
+    return (cfg, M.init_params(gen, cfg), lambda p, b: M.lm_loss(p, b, cfg),
+            data.batches(args.steps), None)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="lenet",
-                    help=f"CNN arch: {', '.join(sorted(C.CNN_CONFIGS))} "
-                         "(LM archs are not ported to training yet)")
+    ap.add_argument("--arch",
+                    choices=[*list_archs(), *sorted(C.CNN_CONFIGS)],
+                    default="qwen2-7b",
+                    help="token LM (dense family) or CNN arch")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=64,
+                    help="tokens a sequence (LM archs)")
     ap.add_argument("--groups", type=int, default=1,
                     help="compute groups g (paper's execution strategy)")
     ap.add_argument("--lr", type=float, default=0.02)
@@ -108,11 +135,11 @@ def main(argv=None):
                     help="leaf path of the fused update: cuda = the kernel, "
                          "torch = the plain version")
     ap.add_argument("--conv-impl", choices=CONV_IMPLS, default="",
-                    help="conv path: lowering_cuda = the lowering-conv, "
-                         "wgrad and dgrad kernels (config default), "
-                         "lowering = their plain twin with the custom "
-                         "backward, lowering_autodiff = plain autograd, "
-                         "torch = F.conv2d")
+                    help="CNN conv path (CNN archs only): lowering_cuda = "
+                         "the lowering-conv, wgrad and dgrad kernels "
+                         "(config default), lowering = their plain twin "
+                         "with the custom backward, lowering_autodiff = "
+                         "plain autograd, torch = F.conv2d")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (plain paths only)")
@@ -127,11 +154,6 @@ def main(argv=None):
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
-    if args.arch not in C.CNN_CONFIGS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: the port trains the CNN archs "
-            f"({', '.join(sorted(C.CNN_CONFIGS))}); LM training is ROADMAP "
-            "Queue A item 10")
     return _run(args)
 
 
@@ -170,11 +192,11 @@ def _train(args, device):
         if rank == 0:
             print(msg, flush=True)
 
-    cfg, params, loss_fn, data = _build_workload(args, device)
+    cfg, params, loss_fn, data, head_filter = _build_workload(args, device)
     mom = init_momentum(params)
     engine = Engine(loss_fn, strategy=args.strategy, num_groups=args.groups,
                     lr=args.lr, momentum=args.momentum,
-                    weight_decay=args.weight_decay, head_filter=C.head_filter,
+                    weight_decay=args.weight_decay, head_filter=head_filter,
                     update_impl=args.update_impl, exec_mode=args.exec_mode,
                     mp=args.mp, device=device,
                     **({"bucket_bytes": args.bucket_bytes}
@@ -182,7 +204,9 @@ def _train(args, device):
                     checkpoint_dir=args.ckpt,
                     checkpoint_every=args.steps if args.ckpt else 0)
     n_params = sum(p.numel() for p in T.leaves(params))
-    say(f"arch={cfg.name} params={n_params} conv={cfg.conv_impl} "
+    what = (f"conv={cfg.conv_impl}" if args.arch in C.CNN_CONFIGS
+            else f"seq={args.seq}")
+    say(f"arch={cfg.name} params={n_params} {what} "
         f"{engine.describe(args.batch // args.groups)}")
     params, mom, losses = engine.run(params, mom, data, steps=args.steps,
                                      log_every=1, log=say)

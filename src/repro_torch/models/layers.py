@@ -14,8 +14,11 @@ Port of the JAX package's ``models/layers.py`` with its numerics kept:
 Params are nested dicts of tensors with the JAX package's key names. The
 JAX sharding hooks (``constrain_batch``, ``maybe_replicate_for_decode``,
 ``constrain_kv_seq``) are the identity on one device and are dropped.
-``attn_impl="cuda"`` routes train/prefill attention through the flash
-kernel (``repro_torch.kernels.flash_attention``).
+``attn_impl="cuda"`` routes prefill attention through the flash kernel
+(``repro_torch.kernels.flash_attention``), which is forward-only: asked for
+gradients, it raises. Training takes ``full_attention`` or, from
+``CHUNKED_ATTN_THRESHOLD`` tokens on, ``chunked_attention`` (a Python loop
+over KV chunks where JAX has a ``lax.scan``) under autograd.
 """
 from __future__ import annotations
 
@@ -217,6 +220,13 @@ def attention_forward(p, x, cfg: ArchConfig, *, positions=None, causal=True,
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     if attn_impl == "cuda":
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            raise NotImplementedError(
+                "attn_impl='cuda': the flash kernel is forward-only, as the "
+                "reference's Pallas kernel is, so it cannot carry "
+                "gradients; train with attn_impl='torch' (an attention "
+                "backward kernel is not ported: ROADMAP Queue A item 10)")
         out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
     elif x.shape[1] >= CHUNKED_ATTN_THRESHOLD and kv_src is None:
         out = chunked_attention(q, k, v, causal=causal, window=window)

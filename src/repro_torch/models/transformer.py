@@ -4,12 +4,18 @@ Port of the JAX package's ``models/transformer.py`` for ``arch_type ==
 "dense"``; the JAX ``lax.scan`` over stacked layer params becomes a Python
 loop over layers. Params keep the JAX tree: ``{"embed", "ln_f", "blocks"}``
 with every ``blocks`` leaf stacked on a leading layer axis, so
-``models.convert.params_from_jax`` is a leaf-by-leaf copy. Caches are
-updated in place (the JAX functions return new ones).
+``models.convert.params_from_jax`` is a leaf-by-leaf copy. Each forward
+splits every stacked leaf once (``unstack``), so under autograd a leaf's
+gradient is stacked once, as the scan's is. Under autograd each block is
+rematerialised when ``cfg.remat`` (JAX's ``jax.checkpoint`` around the scan
+body): ``torch.utils.checkpoint`` keeps only its inputs and recomputes the
+block in the backward pass. Caches are updated in place (the JAX functions
+return new ones).
 
 API:
   init_params(generator, cfg)                   -> params
   forward(params, batch, cfg, return_cache=...) -> (logits, aux, cache|None)
+  lm_loss(params, batch, cfg)                   -> scalar next-token loss
   init_cache(cfg, batch, seq_len)               -> cache (decode)
   decode_step(params, cache, tokens, pos, cfg)  -> (logits, cache)
   prefill(params, cache, tokens, cfg)           -> (logits, cache)
@@ -19,18 +25,25 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import tree as T
 from repro_torch.models import layers as L
 
 #: arch families of the JAX package the port does not run yet, and the
 #: ROADMAP entry that ports each
 UNPORTED = {
-    "moe": "models/moe.py (ROADMAP Queue A: MoE/SSM serving families)",
-    "ssm": "models/ssm.py (ROADMAP Queue A: MoE/SSM serving families)",
-    "hybrid": "models/rglru.py (ROADMAP Queue A: MoE/SSM serving families)",
-    "vlm": "the cross-attention blocks (ROADMAP Queue A: LM families)",
-    "encdec": "the encoder-decoder blocks (ROADMAP Queue A: LM families)",
+    "moe": "models/moe.py (ROADMAP Queue A item 11: MoE/SSM serving "
+           "families)",
+    "ssm": "models/ssm.py (ROADMAP Queue A item 11: MoE/SSM serving "
+           "families)",
+    "hybrid": "models/rglru.py (ROADMAP Queue A item 11: MoE/SSM serving "
+              "families)",
+    "vlm": "the cross-attention blocks (ROADMAP Queue A item 11: LM "
+           "families)",
+    "encdec": "the encoder-decoder blocks (ROADMAP Queue A item 11: LM "
+              "families)",
 }
 
 
@@ -46,11 +59,19 @@ def require_dense(cfg: ArchConfig) -> None:
     raise ValueError(t)
 
 
-def layer(blocks, i: int):
-    """Layer ``i``'s params: the stacked ``blocks`` tree indexed at ``i``."""
+def unstack(blocks, n: int):
+    """The stacked ``blocks`` tree as ``n`` per-layer trees, with one
+    ``torch.unbind`` per leaf (views). Under autograd each leaf's gradient
+    is then one stack of its n slices; indexing the leaf once per layer
+    would make each select's backward write a zero-filled tensor the size
+    of the whole leaf."""
     if isinstance(blocks, dict):
-        return {k: layer(v, i) for k, v in blocks.items()}
-    return blocks[i]
+        per = {k: unstack(v, n) for k, v in blocks.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    parts = torch.unbind(blocks, 0)
+    if len(parts) != n:
+        raise ValueError(f"stacked leaf has {len(parts)} layers, not {n}")
+    return parts
 
 
 # ---------------------------------------------------------------------------
@@ -104,10 +125,19 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
     if window is None:
         window = cfg.sliding_window
     x = L.embed(params["embed"], batch["tokens"], cfg)
+    # remat only where a backward pass will follow
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in T.leaves(params))
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _dense_block(layer(params["blocks"], i), x, cfg,
-                                 window=window, attn_impl=attn_impl)
+    for bp in unstack(params["blocks"], cfg.num_layers):
+        if remat:
+            # the blocks draw no random numbers: no RNG state to replay
+            x, (k, v) = checkpoint(_dense_block, bp, x, cfg, window=window,
+                                   attn_impl=attn_impl, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            x, (k, v) = _dense_block(bp, x, cfg, window=window,
+                                     attn_impl=attn_impl)
         if return_cache:
             ks.append(k)
             vs.append(v)
@@ -117,6 +147,19 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
     cache = ({"blocks": {"k": torch.stack(ks), "v": torch.stack(vs)}}
              if return_cache else None)
     return logits, aux, cache
+
+
+def lm_loss(params, batch, cfg: ArchConfig, *, attn_impl: str = "torch",
+            window: Optional[int] = None):
+    """Next-token cross-entropy: batch needs "tokens" and "labels" (B,S)
+    int. fp32 logits, ``log_softmax`` in fp32, mean over all positions
+    (plus the aux loss, zero for dense stacks)."""
+    logits, aux, _ = forward(params, batch, cfg, attn_impl=attn_impl,
+                             window=window)
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = batch["labels"].long()          # gather takes int64 indices
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    return nll.mean() + aux
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +186,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
     if window is None:
         window = cfg.sliding_window
     x = L.embed(params["embed"], tokens, cfg)
-    for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
+    for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
         c = {name: cache["blocks"][name][i] for name in ("k", "v")}
         a, _ = L.attention_decode(bp["attn"],
                                   L.rms_norm(x, bp["ln1"], cfg.norm_eps),

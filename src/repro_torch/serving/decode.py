@@ -49,7 +49,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import valid_mask
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import layer, require_dense
+from repro_torch.models.transformer import require_dense, unstack
 
 __all__ = ["ATTN_IMPLS", "paged_attention_decode", "paged_decode_step"]
 
@@ -138,8 +138,7 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
     check_attn_impl(attn_impl, tokens.device)
     require_dense(cfg)
     x = L.embed(params["embed"], tokens, cfg)
-    for i in range(cfg.num_layers):
-        bp = layer(params["blocks"], i)
+    for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
         a, _ = paged_attention_decode(
             bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
             pages["k"][i], pages["v"][i], table, pos, active, cfg,

@@ -10,7 +10,8 @@ card's check). This file imports no JAX, so it runs on the card's machine:
 
 Tolerances: bf16 ``atol = rtol = 2e-2`` and fp32 ``1e-5`` against the plain
 versions (summation order, and in bf16 where the plain version rounds);
-served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32.
+served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32;
+the flash arm raises when asked for gradients.
 The fused update is bitwise its plain version (same fp32 order, no FMA
 contraction); the conv kernels sum over K or M in another order than
 cuBLAS (all three in 3xTF32 on tensor cores): max abs error
@@ -220,6 +221,33 @@ def test_cuda_gather_ring_fallback_warns_and_notes(card):
         srv2 = ContinuousServer(_cfg(), slots=2, page_size=16, max_seq=64,
                                 attn_impl="cuda_gather", device=card)
     assert srv2.registry.notes == []
+
+
+def test_flash_arm_refuses_gradients_and_serves_under_no_grad(card):
+    """The flash kernel is forward-only: ``lm_loss(..., attn_impl="cuda")``
+    under ``autograd.grad`` raises, naming the ROADMAP item, where it would
+    otherwise cut q, k and v out of the graph; under ``no_grad`` the arm
+    gives the logits it gives without gradients, within 1e-4 of the plain
+    arm (fp32)."""
+    from repro_torch.core.async_sgd import value_and_grad
+    from repro_torch.models import transformer as M
+    cfg = _cfg()
+    params = M.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    toks = torch.randint(cfg.vocab_size, (2, 33), device=card,
+                         generator=torch.Generator(device=card).manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with pytest.raises(NotImplementedError, match="forward-only.*ROADMAP"):
+        value_and_grad(lambda p, b: M.lm_loss(p, b, cfg, attn_impl="cuda"),
+                       params, batch)
+    before = fa_ops.flash_attention.launches
+    plain = M.forward(params, batch, cfg, attn_impl="cuda")[0]
+    with torch.no_grad():
+        logits = M.forward(params, batch, cfg, attn_impl="cuda")[0]
+    assert fa_ops.flash_attention.launches == before + 2 * cfg.num_layers
+    assert torch.equal(logits, plain)
+    torch.testing.assert_close(
+        logits, M.forward(params, batch, cfg, attn_impl="torch")[0],
+        rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

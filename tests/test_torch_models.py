@@ -100,7 +100,7 @@ def test_attention_and_mlp_blocks_match_jax():
     jcfg, tcfg = _cfgs()
     jp, tp = _params(jcfg)
     bp_j = jax.tree.map(lambda a: a[0], jp["blocks"])
-    bp_t = T.layer(tp["blocks"], 0)
+    bp_t = T.unstack(tp["blocks"], tcfg.num_layers)[0]
     x = np.random.default_rng(2).standard_normal(
         (2, 6, jcfg.d_model)).astype(np.float32)
     yj, (kj, vj) = JL.attention_forward(bp_j["attn"], jnp.asarray(x), jcfg)

@@ -210,7 +210,7 @@ def test_launcher_trains_smoke_lenet_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--arch", "qwen2-7b"], "item 10"), (["--plan"], "item 14"),
+    (["--arch", "qwen2-moe-a2.7b"], "item 11"), (["--plan"], "item 14"),
     (["--exec-mode", "spmd"], "initialized process group"),
     (["--mp", "2"], "needs >= 2 ranks"),
     (["--conv-impl", "lowering_cuda", "--update-impl", "torch"],
