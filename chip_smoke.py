@@ -100,7 +100,28 @@ passed over, nothing falls back to the CPU):
    (``chunked_attention`` under autograd), 2 steps; ``make_prefill_step``
    through the flash kernel and the plain arm at 4 x 512, each held to the
    fp32 prefill as in phase 6; ``make_decode_step`` for 4 tokens from
-   ``init_cache``.
+   ``init_cache``;
+13. the optimizer (``core.auto_optimizer``, ``cluster``, the engine as
+   Runner), at full CaffeNet width: (a) ``Engine.profiled_spec`` of
+   ``gpu-h100-sxm``, i.e. ``Engine.profile`` of the g = 4
+   ``grouped-fused`` round at batch 256 (1 warm-up + 5 timed rounds, the
+   card synchronized around each), in images/s beside phase 8's
+   ``Engine.run`` reading and within a factor 1.5 of it; (b)
+   ``launch/train.main`` in this process with ``--arch caffenet --batch
+   256 --cluster-spec 2xgpu-g2.2xlarge,2xcpu-c4.4xlarge --plan`` for 5
+   rounds (the plan: g = 4 at shares (93, 93, 35, 35), each group's batch
+   wrap-filled to 93), its plan, round ms and images/s from its metrics
+   sink, every loss finite, the HE x SE report against a plan calibrated
+   from that stream, and a plan with the H100 at its measured images/s
+   beside the cluster's nodes; then B2-B4 against their plain versions at
+   the five layers at group batch 93, and B1 bitwise with the plan's
+   weights (backbone and merged-FC head coefficients) on the slab of all
+   16 leaves; (c) ``algorithm1`` over ``make_runner(cnn_classify(),
+   strategy="grouped-fused")`` (12x12x1 images, K = 9, Cout = 8; its one
+   conv is fed by data, so no dgrad) once with ``update_impl="cuda"`` and
+   once with ``"torch"``: the same decisions; then over the ``delayed``
+   Runner. Every run of (a)-(c) zeroes the launch counts just before it
+   and reads them just after.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -763,14 +784,49 @@ def _check_wgrad(torch, tag, low, dy, ws) -> float:
     return err
 
 
+def _check_conv_layers(torch, g, layers, label: str, errs: dict,
+                       dgrad_first: bool = False) -> None:
+    """B2 (its lowered residual bitwise), B3 and B4 against their plain
+    versions at each ``(x_shape, w_shape, stride)`` of ``layers``; the
+    largest errors land in ``errs``. Layer 0 takes no dgrad on the model's
+    path (``needs_dgrad=False``) unless ``dgrad_first``."""
+    from repro_torch.kernels.lowering_conv import bwd
+    from repro_torch.kernels.lowering_conv.lowering_conv import \
+        lowering_conv_cuda
+    from repro_torch.kernels.lowering_conv.ref import lower
+    dev = torch.device("cuda")
+    for i, (xs, ws, s) in enumerate(layers):
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        kh, kw, cin, cout = ws
+        tag = f"{label}conv{i + 1} x{xs} w{ws} s{s}"
+        y, low = lowering_conv_cuda(x, w, stride=s, return_lowered=True)
+        low_ref = lower(x, kh, kw, s)
+        y_ref = (low_ref @ w.reshape(kh * kw * cin, cout)).reshape(y.shape)
+        errs["lowering_conv"] = max(errs["lowering_conv"], compare_fp32(
+            torch, f"lowering_conv {tag}", y, y_ref))
+        if not torch.equal(low.reshape(low_ref.shape), low_ref):
+            fail(f"lowering_conv {tag}: the lowered residual differs from "
+                 "ref.lower (must be bitwise equal)")
+        log(f"[check] lowering_conv {tag}: residual {tuple(low.shape)} "
+            "bitwise equal to ref.lower ok")
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        del y, y_ref, low_ref
+        errs["wgrad"] = max(errs["wgrad"], _check_wgrad(torch, tag, low, dy,
+                                                        ws))
+        if i > 0 or dgrad_first:      # conv1 has needs_dgrad=False
+            errs["dgrad"] = max(errs["dgrad"], compare_fp32(
+                torch, f"dgrad {tag}", bwd.dgrad_cuda(dy, w, xs, stride=s),
+                bwd.dgrad_ref(dy, w, xs, s)))
+        del x, w, low, dy
+    torch.cuda.empty_cache()
+
+
 def phase_check_train(torch) -> dict:
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
     from repro_torch.kernels.fused_update.ref import fused_update_ref
     from repro_torch.kernels.lowering_conv import bwd
-    from repro_torch.kernels.lowering_conv.lowering_conv import \
-        lowering_conv_cuda
-    from repro_torch.kernels.lowering_conv.ref import lower
     from repro_torch.models import cnn as C
     from repro_torch.optim.closed_form import grouped_coeffs
     dev = torch.device("cuda")
@@ -806,30 +862,7 @@ def phase_check_train(torch) -> dict:
     del params, leaves, cases, big
 
     # B2-B4 at the five CaffeNet layers, then a stride-2 dgrad
-    for i, (xs, ws, s) in enumerate(caffenet_layers()):
-        x = torch.randn(xs, generator=g, device=dev)
-        w = torch.randn(ws, generator=g, device=dev) * 0.05
-        kh, kw, cin, cout = ws
-        tag = f"conv{i + 1} x{xs} w{ws} s{s}"
-        y, low = lowering_conv_cuda(x, w, stride=s, return_lowered=True)
-        low_ref = lower(x, kh, kw, s)
-        y_ref = (low_ref @ w.reshape(kh * kw * cin, cout)).reshape(y.shape)
-        errs["lowering_conv"] = max(errs["lowering_conv"], compare_fp32(
-            torch, f"lowering_conv {tag}", y, y_ref))
-        if not torch.equal(low.reshape(low_ref.shape), low_ref):
-            fail(f"lowering_conv {tag}: the lowered residual differs from "
-                 "ref.lower (must be bitwise equal)")
-        log(f"[check] lowering_conv {tag}: residual {tuple(low.shape)} "
-            "bitwise equal to ref.lower ok")
-        dy = torch.randn(y.shape, generator=g, device=dev)
-        del y, y_ref, low_ref
-        errs["wgrad"] = max(errs["wgrad"], _check_wgrad(torch, tag, low, dy,
-                                                        ws))
-        if i > 0:                     # conv1 has needs_dgrad=False
-            errs["dgrad"] = max(errs["dgrad"], compare_fp32(
-                torch, f"dgrad {tag}", bwd.dgrad_cuda(dy, w, xs, stride=s),
-                bwd.dgrad_ref(dy, w, xs, s)))
-        del x, w, low, dy
+    _check_conv_layers(torch, g, caffenet_layers(), "", errs)
     for label, xs, ws, s in (
             # ragged tiles: Cin 70 and 130 fill no tile, Cout 50 is no
             # multiple of 4 (4-byte copies), 36 no multiple of the stage
@@ -990,20 +1023,32 @@ def _train_counts():
             "fused_update": fu.fused_update_cuda}
 
 
+def _counted(torch, fn):
+    """``fn()`` with the four training kernels' counts zeroed just before
+    it and read just after: -> (its result, the counts)."""
+    counts = _train_counts()
+    for k in counts.values():
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: f.launches for k, f in counts.items()}
+
+
+def _want_rounds(g: int, rounds: int) -> dict:
+    """A CaffeNet round's launches: lowering_conv and wgrad 5 a group,
+    dgrad 4 a group (conv1 takes none), B1 once a leaf (16)."""
+    return {"lowering_conv": 5 * g * rounds, "wgrad": 5 * g * rounds,
+            "dgrad": 4 * g * rounds, "fused_update": 16 * rounds}
+
+
 def _train_run(torch, engine, params, mom, data, rounds: int, label: str):
     """One engine run with the four launch counts zeroed just before it and
     checked just after against the run's own rounds."""
     g = engine.num_groups
-    counts = _train_counts()
-    for fn in counts.values():
-        fn.launches = 0
-    params, mom, losses = engine.run(
+    (params, mom, losses), got = _counted(torch, lambda: engine.run(
         params, mom, data.batches(rounds), steps=rounds, log_every=1,
-        log=lambda m: log(f"[train:{label}] {m}"))
-    torch.cuda.synchronize()
-    got = {k: fn.launches for k, fn in counts.items()}
-    want = {"lowering_conv": 5 * g * rounds, "wgrad": 5 * g * rounds,
-            "dgrad": 4 * g * rounds, "fused_update": 16 * rounds}
+        log=lambda m: log(f"[train:{label}] {m}")))
+    want = _want_rounds(g, rounds)
     log(f"[train:{label}] {rounds} rounds at g={g}: launches {got} "
         f"(want {want})")
     if len(losses) != rounds:
@@ -1055,7 +1100,8 @@ def phase_train_profile(torch, engine, params, mom, batch, what: str,
     log_port_kernels(kernels, names)
 
 
-def phase_train(torch) -> dict:
+def phase_train(torch):
+    """-> (launch counts, the g = 4 run's images/s inside the step)."""
     from repro_torch.core import tree as T
     from repro_torch.data.pipeline import DataConfig, SyntheticImages, prefetch
     from repro_torch.engine import Engine
@@ -1087,6 +1133,8 @@ def phase_train(torch) -> dict:
         f"batch {CNN_BATCH}")
     params, mom, c4 = _train_run(torch, eng, params, init_momentum(params),
                                  data, 6, "g4")
+    tel = eng.telemetry
+    run_ips = CNN_BATCH / statistics.median(tel.step_s[tel.skip:])
     batch = next(prefetch(data.batches(1), device=dev))
     phase_train_profile(torch, eng, params, mom, batch,
                         f"full-width CaffeNet round, batch {CNN_BATCH}",
@@ -1098,7 +1146,7 @@ def phase_train(torch) -> dict:
         "GB")
     del params, mom, batch
     torch.cuda.empty_cache()
-    return {k: c4[k] + c1[k] for k in c4}
+    return {k: c4[k] + c1[k] for k in c4}, run_ips
 
 
 def phase_train_parity(torch) -> None:
@@ -1694,6 +1742,229 @@ def phase_lm(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the optimizer: the engine's black-box probe, a planned run, Algorithm 1
+# ---------------------------------------------------------------------------
+
+#: the paper's §VI-A EC2 nodes (g2 GPU, c4 CPU): at CaffeNet's batch 256 the
+#: planner picks g = 4 at unequal shares (93, 93, 35, 35)
+OPT_SPEC = "2xgpu-g2.2xlarge,2xcpu-c4.4xlarge"
+OPT_ROUNDS = 5                 # the planned run, the first a warm-up
+OPT_PROFILE_ITERS = 5          # Engine.profile's timed rounds, after one
+PROFILE_AGREE = 1.5            # Engine.profile against Engine.run's images/s
+#: Algorithm 1 over cnn_classify: a g = 4 start on 4 devices, one epoch
+OPT_ALG1 = dict(n_devices=4, epochs=1, epoch_steps=20, probe_steps=10, g0=4)
+
+
+def phase_opt_profile(torch, run_ips: float):
+    """(a) ``Engine.profiled_spec`` of ``gpu-h100-sxm``: ``Engine.profile``
+    of the g = 4 ``grouped-fused`` CaffeNet round at batch 256 (one
+    warm-up and ``OPT_PROFILE_ITERS`` timed rounds, the card synchronized
+    around each), held within ``PROFILE_AGREE`` of phase 8's ``Engine.run``
+    reading. -> (the measured spec, the launch counts)."""
+    from repro_torch import cluster
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages
+    from repro_torch.engine import Engine
+    from repro_torch.models import cnn as C
+    from repro_torch.optim.sgd import init_momentum
+    cfg = C.CAFFENET
+    params = C.init_params(torch.Generator(device=torch.device(
+        "cuda")).manual_seed(0), cfg)
+    mom = init_momentum(params)
+    batch = next(SyntheticImages(DataConfig(
+        batch_size=CNN_BATCH, image_size=cfg.image_size,
+        channels=cfg.in_channels, num_classes=cfg.num_classes,
+        seed=0)).batches(1))
+    eng = Engine(lambda p, b: C.loss_fn(p, b, cfg), strategy="grouped-fused",
+                 num_groups=CNN_GROUPS, lr=0.01, momentum=0.3,
+                 head_filter=C.head_filter, update_impl="cuda",
+                 device=torch.device("cuda"))
+    spec, got = _counted(torch, lambda: eng.profiled_spec(
+        cluster.get_device("gpu-h100-sxm"), params, mom, batch, warmup=1,
+        iters=OPT_PROFILE_ITERS))
+    want = _want_rounds(CNN_GROUPS, 1 + OPT_PROFILE_ITERS)
+    ratio = spec.throughput / run_ips
+    log(f"[opt:profile] Engine.profile, CaffeNet g={CNN_GROUPS} "
+        f"grouped-fused batch {CNN_BATCH}: {spec.throughput:.1f} images/s "
+        f"({CNN_BATCH / spec.throughput * 1e3:.2f} ms a round, median of "
+        f"{OPT_PROFILE_ITERS}); phase 8 Engine.run {run_ips:.1f} images/s; "
+        f"ratio {ratio:.3f} (limit {PROFILE_AGREE}); launches {got} (want "
+        f"{want})")
+    if got != want:
+        fail(f"Engine.profile: launch counts {got} != {want}")
+    if not 1 / PROFILE_AGREE <= ratio <= PROFILE_AGREE:
+        fail(f"Engine.profile reads {spec.throughput:.1f} images/s against "
+             f"Engine.run's {run_ips:.1f}: beyond a factor {PROFILE_AGREE}")
+    del params, mom, batch, eng
+    _free(torch)
+    return spec, got
+
+
+def phase_opt_plan(torch, h100) -> tuple:
+    """(b) ``launch/train.main`` in this process: CaffeNet at batch 256
+    planned over ``OPT_SPEC`` for ``OPT_ROUNDS`` rounds, launch counts
+    zeroed before and checked after, every loss finite; the round's ms and
+    images/s from its metrics sink, the HE x SE report against a plan
+    calibrated from that stream, and a plan with the card's measured spec
+    (``h100``) beside the cluster's nodes. Then B2-B4 at the planned
+    per-group batch and B1 bitwise with the plan's weights. -> (launch
+    counts, the largest kernel errors)."""
+    import argparse
+    import tempfile
+    from repro_torch import cluster
+    from repro_torch.core import tree as T
+    from repro_torch.kernels.fused_update import ops as fu
+    from repro_torch.kernels.fused_update.ref import fused_update_ref
+    from repro_torch.launch import train as TR
+    from repro_torch.models import cnn as C
+    from repro_torch.obs.metrics import MetricRegistry
+    from repro_torch.obs.report import calibrated_plan, hexse_report
+    from repro_torch.optim.closed_form import grouped_coeffs, head_coeffs
+    dev = torch.device("cuda")
+    cfg = C.CAFFENET
+    gen = torch.Generator(device=dev).manual_seed(14)
+    params = C.init_params(gen, cfg)
+    ns = argparse.Namespace(cluster_spec=OPT_SPEC, seq=64, batch=CNN_BATCH)
+    plan = TR._plan(ns, params, cfg, say=lambda m: log(f"[opt:plan] {m}"))
+    sizes, g = plan.allocation.microbatches, plan.g
+    pgb = max(sizes)
+    if len(set(sizes)) < 2:
+        fail(f"the plan over {OPT_SPEC} has equal shares {sizes}")
+    argv = ["--arch", "caffenet", "--batch", str(CNN_BATCH), "--steps",
+            str(OPT_ROUNDS), "--lr", "0.01", "--momentum", "0.3",
+            "--cluster-spec", OPT_SPEC, "--plan"]
+    with tempfile.TemporaryDirectory() as tmp:
+        sink = str(Path(tmp) / "planned.jsonl")
+        t0 = time.perf_counter()
+        losses, got = _counted(torch, lambda: TR.main(
+            argv + ["--metrics-out", sink]))
+        wall = time.perf_counter() - t0
+        reg, _ = MetricRegistry.from_jsonl(sink)
+    want = _want_rounds(g, OPT_ROUNDS)
+    log(f"[opt:plan] launch/train.py {' '.join(argv)}: {len(losses)} rounds "
+        f"in {wall:.1f} s, launches {got} (want {want})")
+    if got != want:
+        fail(f"planned run: launch counts {got} != {want}")
+    if len(losses) != OPT_ROUNDS or not all(math.isfinite(x)
+                                            for x in losses):
+        fail(f"planned run: losses {losses}")
+    steady = reg.series("step_s").values[1:]
+    waits = reg.series("data_wait_s").values[1:]
+    med = statistics.median(steady)
+    log(f"[opt:plan] planned round: g={g} mp={plan.mp} weights "
+        f"{[round(w, 6) for w in plan.weights]} microbatches {sizes}, "
+        f"per-group batch {pgb} ({g * pgb} examples a round after the "
+        f"wrap-fill); step ms (host clock, rounds 2-{OPT_ROUNDS}) median "
+        f"{med * 1e3:.1f} min {min(steady) * 1e3:.1f} max "
+        f"{max(steady) * 1e3:.1f}; images/s {CNN_BATCH / med:.1f} of the "
+        f"global batch, {g * pgb / med:.1f} examples computed; host data "
+        f"wait median {statistics.median(waits) * 1e3:.1f} ms; losses "
+        f"{[round(x, 4) for x in losses]}")
+    for line in hexse_report(reg, calibrated_plan(
+            reg, g=g, global_batch=CNN_BATCH)).render().splitlines():
+        log(f"[opt:plan] {line}")
+    # the card's measured spec beside the cluster's nodes
+    cluster.register_device(dataclasses.replace(h100,
+                                                name="gpu-h100-profiled"))
+    ns.cluster_spec = "gpu-h100-profiled," + OPT_SPEC
+    cplan = TR._plan(ns, params, cfg,
+                     say=lambda m: log(f"[opt:calibrated] {m}"))
+    log(f"[opt:calibrated] the H100 at its measured {h100.throughput:.1f} "
+        f"images/s beside {OPT_SPEC}: g={cplan.g} microbatches "
+        f"{cplan.allocation.microbatches}")
+
+    # the kernels at the planned shapes
+    errs = dict.fromkeys(("fused_update", "lowering_conv", "wgrad", "dgrad"),
+                         0.0)
+    _check_conv_layers(torch, gen, C.conv_layer_shapes(cfg, pgb),
+                       f"planned batch {pgb} ", errs)
+    slab = torch.cat([p.reshape(-1) for p in T.leaves(params)])
+    v = torch.randn(slab.shape, generator=gen, device=dev) * 1e-2
+    gs = torch.randn((g,) + tuple(slab.shape), generator=gen,
+                     device=dev) * 1e-3
+    kw = dict(lr=0.01, momentum=0.3, group_weights=plan.weights)
+    for label, c in (("backbone", grouped_coeffs(g, **kw)),
+                     ("merged-FC head", head_coeffs(g, **kw))):
+        got_wv = fu.fused_update_cuda(slab, v, gs, c)
+        want_wv = fused_update_ref(slab, v, gs, c)
+        torch.cuda.synchronize()
+        if not (torch.equal(got_wv[0], want_wv[0])
+                and torch.equal(got_wv[1], want_wv[1])):
+            fail(f"fused_update {label} with the plan's weights: differs "
+                 "from the plain version (must be bitwise equal)")
+        log(f"[check] fused_update {label} coefficients a={c.a} of the "
+            f"plan's weights, slab of all 16 CaffeNet leaves "
+            f"({slab.numel()} elements), g={g}: bitwise equal to the plain "
+            "version ok")
+    del params, slab, v, gs, got_wv, want_wv
+    _free(torch)
+    return got, errs
+
+
+def phase_opt_algorithm1(torch) -> dict:
+    """(c) ``algorithm1`` over ``make_runner(cnn_classify(),
+    strategy="grouped-fused")`` on the card, once through the fused-update
+    kernel and once through its plain version: the same decisions; then
+    over the ``delayed`` Runner. Launch counts zeroed before each run and
+    read after it."""
+    import numpy as np
+    from repro_torch.core import auto_optimizer as A
+    from repro_torch.core import workload as W
+    wl = W.cnn_classify()
+    res, counts = {}, {}
+    runs = (("grouped-fused", "cuda"), ("grouped-fused", "torch"),
+            ("delayed", "cuda"))
+    for strategy, upd in runs:
+        runner = W.make_runner(wl, strategy=strategy, update_impl=upd)
+        t0 = time.perf_counter()
+        out, got = _counted(torch, lambda: A.algorithm1(
+            runner, W.init_state(wl, seed=0), **OPT_ALG1))
+        res[strategy, upd], counts[strategy, upd] = out, got
+        log(f"[opt:alg1] {strategy} update={upd} "
+            f"conv={W.cnn_config().conv_impl}: "
+            f"{time.perf_counter() - t0:.1f} s, "
+            f"{len(out.losses)} trained steps, final g={out.g} mu={out.mu} "
+            f"eta={out.eta}, launches {got}")
+        for d in out.decisions:
+            log(f"[opt:alg1]   {d.phase:5s} g={d.g} mu={d.mu} eta={d.eta} "
+                f"loss={d.loss:.6f}")
+        if not all(math.isfinite(d.loss) for d in out.decisions):
+            fail(f"algorithm1 {strategy}/{upd}: a non-finite decision loss")
+        # cnn_classify's one conv is fed by data: no dgrad on its path;
+        # B1 only where the grouped step's update runs the kernel
+        uses_b1 = (strategy, upd) == ("grouped-fused", "cuda")
+        if (got["lowering_conv"] < 1 or got["wgrad"] < 1 or got["dgrad"]
+                or (got["fused_update"] > 0) != uses_b1):
+            fail(f"algorithm1 {strategy}/{upd}: launch counts {got}")
+    kern, plain = res["grouped-fused", "cuda"], res["grouped-fused", "torch"]
+    dk = [(d.phase, d.g, d.mu, d.eta) for d in kern.decisions]
+    dp = [(d.phase, d.g, d.mu, d.eta) for d in plain.decisions]
+    worst = max(abs(a.loss - b.loss) for a, b in zip(kern.decisions,
+                                                     plain.decisions))
+    log(f"[opt:alg1] kernel arm vs plain arm: decisions identical "
+        f"{dk == dp}, decision losses bitwise {worst == 0.0} (max abs diff "
+        f"{worst:.3e}), trained losses bitwise "
+        f"{bool(np.array_equal(kern.losses, plain.losses))}")
+    if dk != dp or worst > 1e-4:
+        fail(f"algorithm1: the fused-update kernel's decisions {dk} differ "
+             f"from the plain version's {dp} (max loss diff {worst:.3e})")
+    _free(torch)
+    total = dict.fromkeys(_train_counts(), 0)
+    for got in counts.values():
+        for k, n in got.items():
+            total[k] += n
+    return total
+
+
+def phase_opt(torch, run_ips: float) -> tuple:
+    """The optimizer phase: (a) the probe, (b) the planned run, (c)
+    Algorithm 1. -> (launch counts, the largest kernel errors)."""
+    h100, a = phase_opt_profile(torch, run_ips)
+    b, errs = phase_opt_plan(torch, h100)
+    c = phase_opt_algorithm1(torch)
+    return {k: a[k] + b[k] + c[k] for k in a}, errs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1731,7 +2002,8 @@ def main(argv=None) -> None:
         return
     launches = phase_slice(torch)
     phase_parity(torch)
-    launches.update(phase_train(torch))
+    counts, run_ips = phase_train(torch)
+    launches.update(counts)
     phase_train_parity(torch)
     for part in (phase_spmd_nccl(torch), phase_spmd_ranks(torch)):
         for name, n in part.items():
@@ -1741,6 +2013,11 @@ def main(argv=None) -> None:
     lm = phase_lm(torch)
     launches["fused_update"] += lm["fused_update"]
     launches["flash"] += lm["flash"]
+    _free(torch)
+    opt, opt_errs = phase_opt(torch, run_ips)
+    for name, n in opt.items():
+        launches[name] += n
+        errs[name] = max(errs[name], opt_errs[name])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

@@ -1,11 +1,18 @@
-"""Asynchronous (stale-gradient) SGD with compute groups: the deployable
-grouped step (the JAX package's ``core/async_sgd.py``, single device).
+"""Asynchronous (stale-gradient) SGD with compute groups (the JAX
+package's ``core/async_sgd.py``, single device). Two implementations of
+the paper's execution strategy:
 
-Each round, all g groups compute gradients at the round-start parameters,
-then the g updates land with staleness 0..g-1 — the paper's Fig. 17(b)
-round-robin picture. ``head_filter`` implements the merged-FC
-optimization: head params see one averaged (zero-staleness) update each
-round.
+1. ``delayed_sgd_run`` — the Theorem-1-exact object: SGD where the gradient
+   applied at step t was evaluated at ``W_{t-S}`` (S = g-1), from an
+   (S+1)-deep ring of parameters. The statistical-efficiency substrate and
+   the ``delayed`` strategy behind Algorithm 1's Runner; meant for small
+   models.
+
+2. The deployable grouped step: each round, all g groups compute
+   gradients at the round-start parameters, then the g updates land with
+   staleness 0..g-1 — the paper's Fig. 17(b) round-robin picture.
+   ``head_filter`` implements the merged-FC optimization: head params see
+   one averaged (zero-staleness) update each round.
 
 Because all g gradients are evaluated at round-start parameters, the g
 sequential momentum-SGD sub-steps form a linear recurrence with a
@@ -14,9 +21,6 @@ applies that closed form in ONE pass over the parameters
 (``kernels/fused_update``); ``strategy="scan"`` keeps the literal O(g)
 sequential application as the semantic reference. Both reduce exactly to
 synchronous data-parallel SGD at g=1.
-
-``delayed_sgd_run`` (Theorem-1-exact delayed SGD) is not ported yet
-(ROADMAP Queue A item 5).
 """
 from __future__ import annotations
 
@@ -29,6 +33,65 @@ from repro_torch.kernels.fused_update.ops import fused_group_update
 from repro_torch.optim.closed_form import (_weight_scales, grouped_coeffs,
                                            head_coeffs)
 
+
+# ---------------------------------------------------------------------------
+# 1. Exact delayed SGD (Theorem-1 semantics), for SE experiments
+# ---------------------------------------------------------------------------
+
+def delayed_sgd_run(loss_fn: Callable, params, batches, *, staleness: int,
+                    lr: float, momentum: float = 0.0,
+                    weight_decay: float = 0.0, record_params: bool = False):
+    """Run ``T`` delayed-SGD steps (T = leading dim of every ``batches``
+    leaf), one ``torch.autograd.grad`` a step.
+
+    Update:  V_{t+1} = mu V_t - eta grad(W_{t-S});  W_{t+1} = W_t + V_{t+1}.
+    For t < S the oldest available parameters are used (cold history:
+    every slot of the ring starts at W_0). The caller's ``params`` are not
+    changed.
+
+    Returns (final_params, losses (T,) tensor, params_trace or None); the
+    trace stacks W_1..W_T along a leading (T, ...) axis per leaf.
+    """
+    S = int(staleness)
+    if S < 0:
+        raise ValueError(f"staleness must be >= 0, got {staleness}")
+    flat = [p.detach() for p in T.leaves(params)]
+    # ring of the last S+1 parameter states, slot t % (S+1) holding W_t
+    hist = [torch.stack([p] * (S + 1)) for p in flat]
+    mom = [torch.zeros_like(p) for p in flat]
+    n_steps = T.leaves(batches)[0].shape[0]
+    losses, trace = [], []
+    for t in range(n_steps):
+        # oldest params in the ring = W_{t-S} (clamped during cold history)
+        idx = (t - S) % (S + 1) if t >= S else 0
+        stale = T.unflatten(params, [h[idx] for h in hist])
+        loss, grads = value_and_grad(loss_fn, stale,
+                                     T.tree_map(lambda x: x[t], batches))
+        nxt = (t + 1) % (S + 1)
+        new_flat = []
+        for j, (h, gr) in enumerate(zip(hist, grads)):
+            cur = h[t % (S + 1)]
+            if weight_decay:
+                gr = gr + weight_decay * cur
+            mom[j] = momentum * mom[j] - lr * gr
+            new = cur + mom[j]
+            h[nxt] = new          # overwrites W_{t-S}, read above
+            new_flat.append(new)
+        losses.append(loss)
+        if record_params:
+            trace.append(new_flat)
+    final = T.unflatten(params, [h[n_steps % (S + 1)].clone()
+                                 for h in hist])
+    stacked = None
+    if record_params:
+        stacked = T.unflatten(params, [torch.stack(xs)
+                                       for xs in zip(*trace)])
+    return final, torch.stack(losses), stacked
+
+
+# ---------------------------------------------------------------------------
+# 2. The deployable grouped step
+# ---------------------------------------------------------------------------
 
 def scan_grouped_update(params, grads, mom_buf, *, lr: float, momentum: float,
                         weight_decay: float = 0.0, head_mask=None,

@@ -21,16 +21,24 @@ Placement (``exec_mode``):
   "auto"       spmd when a process group of world size >= g is
                initialized, else vmap
 
-The Algorithm-1 Runner protocol and ``profile`` (ROADMAP item 14), the
-heterogeneous planner's per-group weights and batch sizes (item 14) and
-trace replay (item 13) are not ported yet.
+The heterogeneous planner's allocation enters as ``group_weights`` (each
+group's gradient weighted by its batch share) and ``micro_sizes`` (each
+group's share of the global batch, wrap-filled to the largest); both
+apply when their length is the round's g. An ``Engine`` is also the
+Algorithm-1 ``Runner`` (``core.auto_optimizer``): ``engine(state, g=,
+mu=, eta=, steps=, probe=)`` draws ``steps`` batches from
+``sample_batches`` and runs them through the strategy's ``run_stacked``.
+``profile`` is the cluster subsystem's black-box probe of the engine's own
+step. Trace replay (ROADMAP item 13) is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
-from typing import Callable, Iterable, Optional
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import tree as T
 from repro_torch.core.compute_groups import GroupSpec
@@ -72,16 +80,25 @@ class Engine:
     the SPMD exchange (0: the whole-tree arm). ``checkpoint_dir`` /
     ``checkpoint_every``: ``run`` saves ``{"params", "mom"}`` (full trees,
     from rank 0) every that many rounds.
+
+    ``group_weights`` / ``micro_sizes``: the planner's per-group batch
+    shares (``cluster.Plan.weights``, ``Plan.allocation.microbatches``).
+    ``sample_batches(generator, steps, batch_size)`` + ``batch_size``
+    enable the Runner protocol (``__call__``); ``seed`` seeds its stream.
     """
 
     def __init__(self, loss_fn: Callable, *, strategy: str = "grouped-fused",
                  num_groups: int = 1, lr: float = 0.02, momentum: float = 0.0,
                  weight_decay: float = 0.0,
+                 group_weights: Optional[Sequence[float]] = None,
+                 micro_sizes: Optional[Sequence[int]] = None,
                  head_filter: Optional[Callable] = None,
                  update_impl: str = "cuda", exec_mode: str = "vmap",
                  num_devices: Optional[int] = None, mp: int = 1,
                  sharding_rules=None,
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                 sample_batches: Optional[Callable] = None,
+                 batch_size: Optional[int] = None, seed: int = 0,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
                  device="cuda", tracer=None):
         if exec_mode not in EXEC_MODES:
@@ -96,6 +113,10 @@ class Engine:
                              f"g={self.num_groups}; use grouped-fused/"
                              "grouped-scan for g>1")
         self.lr, self.momentum, self.weight_decay = lr, momentum, weight_decay
+        self.group_weights = (tuple(float(w) for w in group_weights)
+                              if group_weights is not None else None)
+        self.micro_sizes = (tuple(int(s) for s in micro_sizes)
+                            if micro_sizes is not None else None)
         self.head_filter = head_filter
         self.update_impl = update_impl
         self.exec_mode, self.num_devices = exec_mode, num_devices
@@ -108,6 +129,8 @@ class Engine:
         self.sharding_rules = (tuple(sharding_rules)
                                if sharding_rules is not None else None)
         self.bucket_bytes = int(bucket_bytes)
+        self.sample_batches, self.batch_size = sample_batches, batch_size
+        self.seed = seed
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.telemetry = timing.Telemetry()
@@ -120,6 +143,16 @@ class Engine:
     # ------------------------------------------------------------------
     # configuration
     # ------------------------------------------------------------------
+
+    def _weights_for(self, g: int):
+        if self.group_weights is not None and len(self.group_weights) == g:
+            return self.group_weights
+        return None
+
+    def _sizes_for(self, g: int):
+        if self.micro_sizes is not None and len(self.micro_sizes) == g:
+            return self.micro_sizes
+        return None
 
     def _resolve_exec(self, g: int, per_group_batch: int):
         """-> (mode, k, mesh or None). k data-parallel slots per group come
@@ -161,20 +194,40 @@ class Engine:
             self._meshes[(g, k, mp)] = mesh
         return "spmd", k, mesh
 
-    def _built_step(self, per_group_batch: int):
-        step = self._steps.get(per_group_batch)
+    def _step_for(self, strategy: Strategy, *, g: int, lr: float,
+                  momentum: float, per_group_batch: int):
+        """The step for one (strategy, g, lr, mu, per-group batch), built
+        once: Algorithm 1's Runner re-probes the same point many times."""
+        key = (strategy.name, g, lr, momentum, per_group_batch)
+        step = self._steps.get(key)
         if step is None:
-            step = self.strategy.build_step(
-                self, g=self.num_groups, lr=self.lr, momentum=self.momentum,
-                per_group_batch=per_group_batch)
-            self._steps[per_group_batch] = step
+            step = strategy.build_step(self, g=g, lr=lr, momentum=momentum,
+                                       per_group_batch=per_group_batch)
+            self._steps[key] = step
         return step
 
-    def _per_group_batch(self, global_batch: int) -> int:
-        if global_batch % self.num_groups:
-            raise ValueError(f"batch {global_batch} not divisible by "
-                             f"g={self.num_groups}")
-        return global_batch // self.num_groups
+    def _built_step(self, per_group_batch: int):
+        """The engine's own step (its strategy, g, lr and mu)."""
+        if not self.strategy.supports_step:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} has no per-round step; "
+                "drive it through the Runner protocol (Engine.__call__)")
+        return self._step_for(self.strategy, g=self.num_groups, lr=self.lr,
+                              momentum=self.momentum,
+                              per_group_batch=per_group_batch)
+
+    def _round_step(self, global_batch: int):
+        """The engine's own step for rounds of ``global_batch`` examples."""
+        return self._built_step(self._per_group_batch(self.num_groups,
+                                                      global_batch))
+
+    def _per_group_batch(self, g: int, global_batch: int) -> int:
+        sizes = self._sizes_for(g)
+        if sizes is not None:
+            return max(sizes)     # sized splits wrap-fill to max(sizes)
+        if global_batch % g:
+            raise ValueError(f"batch {global_batch} not divisible by g={g}")
+        return global_batch // g
 
     def group_spec(self, g: Optional[int] = None) -> GroupSpec:
         g = self.num_groups if g is None else g
@@ -256,13 +309,13 @@ class Engine:
 
     def step(self, params, mom, batch):
         """One timed round on the global ``batch`` (a dict of device
-        tensors with leaves (B, ...), B divisible by g). Returns
+        tensors with leaves (B, ...), B divisible by g or the sum of
+        ``micro_sizes``). Returns
         ``(params, mom, loss)`` (new full trees; the caller's are not
         changed; ``loss`` a 0-d tensor under vmap, else the float64 mean
         of the per-shard losses); the wall time, which ends in the
         synchronizing loss read, lands in telemetry."""
-        b = T.leaves(batch)[0].shape[0]
-        built = self._built_step(self._per_group_batch(b))
+        built = self._round_step(T.leaves(batch)[0].shape[0])
         self._annotate_buckets(built, params)
         with self.tracer.span("engine.step", g=self.num_groups,
                               mode=built.mode):
@@ -308,7 +361,7 @@ class Engine:
         if first is _END or steps < 1:
             return params, mom, losses
         global_b = T.leaves(first)[0].shape[0]
-        built = self._built_step(self._per_group_batch(global_b))
+        built = self._round_step(global_b)
         self._annotate_buckets(built, params)
 
         def local(stream):
@@ -371,3 +424,74 @@ class Engine:
                 CK.save(f"{self.checkpoint_dir}/ckpt_{step_no:07d}", tree,
                         step=step_no)
         self.telemetry.registry.counter("checkpoints").inc()
+
+    # ------------------------------------------------------------------
+    # Algorithm-1 Runner protocol
+    # ------------------------------------------------------------------
+
+    def _stream(self, t0: int, probe: bool) -> torch.Generator:
+        """The Runner's batch stream at ``state = (params, t0)``: a
+        generator on the engine's device seeded from ``(seed, t0 +
+        probe)``, so every probe from one state draws the same batches
+        and no probe moves the stream (paper App. E-C)."""
+        seq = np.random.SeedSequence((int(self.seed), int(t0) + int(probe)))
+        seed = int(seq.generate_state(1, np.uint64)[0] >> np.uint64(1))
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _on_device(self, tree):
+        """A batch tree of tensors or host arrays on the engine's device."""
+        return T.tree_map(
+            lambda x: (x if isinstance(x, torch.Tensor)
+                       else torch.from_numpy(np.array(x))).to(self.device),
+            tree)
+
+    def __call__(self, state, *, g: int, mu: float, eta: float, steps: int,
+                 probe: bool) -> Tuple[object, np.ndarray]:
+        """``Runner`` protocol (``core.auto_optimizer``): run ``steps`` at
+        (g, mu, eta) from ``state = (params, step_counter)`` and zero
+        momentum. Probe runs restart from the same state and do not
+        advance the stream (paper App E-C). Returns ``(state, losses)``:
+        the caller's state on a probe, else ``(params, t0 + steps)``;
+        ``losses`` (steps,) numpy."""
+        if not self.strategy.supports_runner:
+            raise ValueError(
+                f"strategy {self.strategy.name!r} is not a Runner substrate")
+        if self.sample_batches is None or self.batch_size is None:
+            raise ValueError("the Runner protocol needs Engine("
+                             "sample_batches=..., batch_size=...)")
+        params, t0 = state
+        batches = self._on_device(self.sample_batches(
+            self._stream(t0, probe), steps, self.batch_size))
+        params = T.tree_map(lambda t: t.detach().to(self.device), params)
+        final, losses = self.strategy.run_stacked(
+            self, params, batches, g=g, lr=eta, momentum=mu)
+        if probe:
+            return state, losses
+        return (final, t0 + steps), losses
+
+    # ------------------------------------------------------------------
+    # the cluster subsystem's black-box probe
+    # ------------------------------------------------------------------
+
+    def profile(self, params, mom, batch, *, warmup: int = 1,
+                iters: int = 5) -> float:
+        """Black-box examples/s of the engine's own step on one global
+        ``batch`` (the cluster subsystem's ``profile_device`` contract,
+        synchronizing the engine's device around each timed round): the
+        probe never looks inside the step. The step writes new tensors, so
+        re-calling it on the same ``params`` / ``mom`` changes nothing."""
+        from repro_torch.cluster.devices import profile_device   # lazy
+        batch = self._on_device(batch)
+        b = T.leaves(batch)[0].shape[0]
+        built = self._round_step(b)
+        if built.idle:
+            raise ValueError("profile needs a rank inside the group mesh")
+        local = built.local(batch)
+        args = (built.shard(params), built.shard(mom), local)
+        return profile_device(built, args, batch_size=b, warmup=warmup,
+                              iters=iters, device=self.device)
+
+    def profiled_spec(self, spec, params, mom, batch, **kw):
+        """``DeviceSpec`` with its throughput measured from this engine."""
+        return dataclasses.replace(
+            spec, throughput=self.profile(params, mom, batch, **kw))

@@ -1,27 +1,33 @@
-"""Execution-strategy plugins behind ``Engine.step`` / ``Engine.run`` (the
-JAX package's ``engine/strategies.py``, single device):
+"""Execution-strategy plugins behind ``Engine.step`` / ``Engine.run`` and
+the Algorithm-1 Runner (the JAX package's ``engine/strategies.py``):
 
   sync           g=1 synchronous data-parallel SGD (the grouped step's
                  exact g=1 reduction; pinned to g=1)
   grouped-fused  g async compute groups, closed-form fused update
   grouped-scan   g async compute groups, literal O(g) sequential update
+  delayed        exact delayed SGD (staleness S=g-1, paper Theorem 1) —
+                 the default Runner substrate for Algorithm 1
 
-A strategy's ``build_step`` places the step by the engine's resolved mode
-(``Engine._resolve_exec``): ``"spmd"`` (this rank's step over the group
-mesh, ``engine.spmd``), ``"reference"`` (its single-process bitwise twin)
-or ``"vmap"`` (the g groups' gradients one after another on one device,
-``core.async_sgd``). ``delayed`` (Theorem-1-exact delayed SGD) and
-``trace-replay`` are not ported yet: asking for them raises
-``NotImplementedError`` naming their ROADMAP item.
+A strategy provides ``build_step`` (a per-round step + batch preparation)
+and/or ``run_stacked`` (a whole-run loop over stacked batches, used by
+the Runner protocol, ``Engine.__call__``). ``build_step`` places the step
+by the engine's resolved mode (``Engine._resolve_exec``): ``"spmd"``
+(this rank's step over the group mesh, ``engine.spmd``), ``"reference"``
+(its single-process bitwise twin) or ``"vmap"`` (the g groups' gradients
+one after another on one device, ``core.async_sgd``). ``trace-replay`` is
+not ported yet: asking for it raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 import numpy as np
+import torch
 
 from repro_torch.core import tree as T
-from repro_torch.core.async_sgd import make_grouped_train_step
+from repro_torch.core.async_sgd import (delayed_sgd_run,
+                                       make_grouped_train_step)
 from repro_torch.core.compute_groups import group_batch_split
 from repro_torch.engine.spmd import (device_batch_split,
                                      make_reference_grouped_step,
@@ -29,7 +35,6 @@ from repro_torch.engine.spmd import (device_batch_split,
 
 _REGISTRY: Dict[str, "Strategy"] = {}
 _NOT_PORTED = {
-    "delayed": "ROADMAP Queue A item 5 (core/async_sgd.delayed_sgd_run)",
     "trace-replay": "ROADMAP Queue A item 13 (exec/replay.py)",
 }
 
@@ -56,12 +61,19 @@ def list_strategies():
 
 
 class Strategy:
-    """Interface: ``build_step`` returns a per-round step."""
+    """Interface. ``supports_step``: has a per-round ``step``;
+    ``supports_runner``: usable as the Algorithm-1 Runner substrate."""
     name = "?"
+    supports_step = True
+    supports_runner = True
 
     def build_step(self, engine, *, g: int, lr: float, momentum: float,
                    per_group_batch: int):
         raise NotImplementedError(f"{self.name} has no per-round step")
+
+    def run_stacked(self, engine, params, batches, *, g: int, lr: float,
+                    momentum: float):
+        raise NotImplementedError(f"{self.name} cannot drive a stacked run")
 
 
 class _BuiltStep:
@@ -78,12 +90,13 @@ class _BuiltStep:
     deterministic scalar."""
 
     def __init__(self, fn: Callable, prepare: Callable, mode: str, g: int,
-                 k: int, coord=None):
+                 k: int, coord=None, sizes=None):
         self.fn = fn              # (params, mom, prepared batch)
         self.prepare = prepare    # local device batch -> the step's input
         self.mode = mode          # "spmd" | "reference" | "vmap"
         self.g, self.k = g, k
         self.coord = coord        # this rank's (group, data, mp) under spmd
+        self.sizes = sizes        # per-group shares (None: equal)
 
     @property
     def idle(self) -> bool:
@@ -97,9 +110,8 @@ class _BuiltStep:
             return batch
         gi, ki, _ = self.coord
         return T.tree_map(lambda x: x[gi, ki],
-                          device_batch_split(group_batch_split(batch,
-                                                               self.g),
-                                             self.k))
+                          device_batch_split(group_batch_split(
+                              batch, self.g, sizes=self.sizes), self.k))
 
     def shard(self, tree):
         return tree if self.mode != "spmd" or self.idle else self.fn.shard(
@@ -129,10 +141,12 @@ class GroupedStrategy(Strategy):
                                 g=g) as sp:
             mode, k, mesh = engine._resolve_exec(g, per_group_batch)
             sp.set(mode=mode, k=k)
+            sizes = engine._sizes_for(g)
             common = dict(lr=lr, momentum=momentum,
                           weight_decay=engine.weight_decay,
                           strategy=self.update,
                           head_filter=engine.head_filter,
+                          group_weights=engine._weights_for(g),
                           update_impl=engine.update_impl)
             coord = None
             if mode == "spmd":
@@ -151,15 +165,45 @@ class GroupedStrategy(Strategy):
                                                  **common)
 
                 def prepare(batch):
-                    return device_batch_split(group_batch_split(batch, g), k)
+                    return device_batch_split(
+                        group_batch_split(batch, g, sizes=sizes), k)
             else:
                 fn = make_grouped_train_step(engine.loss_fn, num_groups=g,
                                              **common)
 
                 def prepare(batch):
-                    return group_batch_split(batch, g)
+                    return group_batch_split(batch, g, sizes=sizes)
 
-        return _BuiltStep(fn, prepare, mode, g, k, coord)
+        return _BuiltStep(fn, prepare, mode, g, k, coord, sizes)
+
+    def run_stacked(self, engine, params, batches, *, g, lr, momentum):
+        """``T`` rounds over stacked ``batches`` (leaves (T, B, ...) on the
+        engine's device) from zero momentum, through the step built once
+        for (strategy, g, lr, mu, per-group batch) and reused by every
+        later probe at that point. Returns (final params, losses (T,)
+        numpy): the round's mean loss, over the (g, k) shards under
+        spmd/reference."""
+        b = T.leaves(batches)[0].shape[1]
+        step = engine._step_for(self, g=g, lr=lr, momentum=momentum,
+                                per_group_batch=engine._per_group_batch(g,
+                                                                        b))
+        if step.idle:
+            raise ValueError("the Runner protocol needs every rank in the "
+                             "group mesh; this rank lies past it")
+        p = step.shard(params)
+        v = step.shard(T.tree_map(torch.zeros_like, params))
+        losses = []
+        for t in range(T.leaves(batches)[0].shape[0]):
+            batch = step.local(T.tree_map(lambda x: x[t], batches))
+            if step.mode == "spmd":
+                # a tensor of its own, as ``Engine.run``'s copy gives it
+                batch = T.tree_map(lambda x: x.clone(), batch)
+            p, v, loss = step(p, v, batch)
+            losses.append(loss.detach().float())
+        losses = torch.stack(losses).cpu().numpy()
+        if losses.ndim > 1:                    # (T, g, k) per-shard losses
+            losses = losses.mean(axis=tuple(range(1, losses.ndim)))
+        return step.unshard(p), losses
 
 
 @register_strategy
@@ -181,3 +225,25 @@ class SyncStrategy(GroupedStrategy):
     silent strategy change."""
     name = "sync"
     update = "fused"
+
+    def run_stacked(self, engine, params, batches, *, g, lr, momentum):
+        if g != 1:
+            raise ValueError(f"strategy 'sync' is pinned to g=1, got g={g}; "
+                             "use grouped-fused/grouped-scan for g>1")
+        return super().run_stacked(engine, params, batches, g=g, lr=lr,
+                                   momentum=momentum)
+
+
+@register_strategy
+class DelayedStrategy(Strategy):
+    """Theorem-1-exact delayed SGD (gradient at W_{t-S}, S=g-1). Carries an
+    (S+1)-deep parameter history — the statistical-efficiency substrate,
+    and the default Runner behind ``workload.make_runner``."""
+    name = "delayed"
+    supports_step = False
+
+    def run_stacked(self, engine, params, batches, *, g, lr, momentum):
+        final, losses, _ = delayed_sgd_run(
+            engine.loss_fn, params, batches, staleness=g - 1, lr=lr,
+            momentum=momentum, weight_decay=engine.weight_decay)
+        return final, losses.float().cpu().numpy()

@@ -166,6 +166,14 @@ class Telemetry:
             raise ValueError("batch_size must be >= 1")
         return batch_size / self.median_step_s(window)
 
+    def drift(self, window: int) -> float:
+        """Recent-to-overall median step-time ratio: > 1 means the run is
+        slowing down (straggler, thermal, contention), < 1 speeding up.
+        The scalar trigger for online re-planning."""
+        if window < 1:
+            raise ValueError("window must be >= 1")
+        return self.median_step_s(window) / self.median_step_s()
+
     def summary(self, batch_size: Optional[int] = None) -> dict:
         data = self._data.values
         out = {

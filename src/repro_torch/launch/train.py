@@ -14,7 +14,15 @@ config's, ``lowering_cuda``), ``--update-impl cuda|torch`` (default
 ``cuda``). As in the JAX launcher, ``encdec`` and ``vlm`` archs exit (their
 modality-stub variants are examples); the MoE, SSM and hybrid families
 raise ``NotImplementedError`` naming ROADMAP Queue A item 11, and
-``--plan`` and ``--replay-trace`` their items.
+``--replay-trace`` its item (13).
+
+Heterogeneous planning (``--cluster-spec ... --plan``, as in the JAX
+launcher) picks g, the device->group packing and throughput-proportional
+batch shares over the named devices (``repro_torch.cluster``), prints the
+plan, and trains with the planned g, each group's gradient weighted by
+its share and each group's batch its share wrap-filled to the largest.
+The plan's model-parallel width falls back to 1 when the process group is
+smaller than g·mp.
 
 Across ranks (``--exec-mode spmd``, or ``auto`` with a world of >= g
 ranks), run under ``torchrun``: every rank makes the same global batches
@@ -32,6 +40,8 @@ the one asked for. Only rank 0 prints and writes files.
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch lenet --smoke --device cpu --conv-impl lowering \\
       --update-impl torch --groups 2 --batch 16 --exec-mode spmd --steps 3
+  python -m repro_torch.launch.train --arch caffenet --batch 256 \\
+      --cluster-spec 1xgpu-g2.2xlarge,2xcpu-c4.4xlarge --plan --steps 5
 """
 from __future__ import annotations
 
@@ -53,7 +63,6 @@ from repro_torch.models import transformer as M
 from repro_torch.optim.sgd import init_momentum
 
 _NOT_PORTED = {
-    "plan": "the heterogeneous planner is ROADMAP Queue A item 14",
     "replay_trace": "trace replay is ROADMAP Queue A item 13",
 }
 
@@ -87,6 +96,39 @@ def _build_workload(args, device):
                                   vocab_size=cfg.vocab_size, seed=args.seed))
     return (cfg, M.init_params(gen, cfg), lambda p, b: M.lm_loss(p, b, cfg),
             data.batches(args.steps), None)
+
+
+def _plan(args, params, cfg, say=print):
+    """Heterogeneous plan: g, device->group packing, batch shares (the JAX
+    launcher's cost model and (g, mp) candidates)."""
+    from repro_torch import cluster
+    devices = cluster.parse_cluster_spec(args.cluster_spec)
+    n_params = sum(p.numel() for p in T.leaves(params))
+    tokens = args.seq if hasattr(cfg, "vocab_size") else 1
+    # rough roofline: ~6*P FLOPs per token fwd+bwd, one param sweep of
+    # memory traffic per example, fp32 gradient payload; fp32 params +
+    # fp32 momentum resident per model replica
+    cost = cluster.WorkloadCost(flops_per_example=6.0 * n_params * tokens,
+                                bytes_per_example=4.0 * n_params,
+                                grad_bytes=4.0 * n_params,
+                                state_bytes=8.0 * n_params)
+    # merged-FC phase ~ the head matmul on the full batch on the fastest
+    # device (unembed for LMs, the FC stack for CNNs)
+    if hasattr(cfg, "vocab_size"):
+        head_flops = 6.0 * cfg.d_model * cfg.vocab_size * args.seq
+    else:
+        head_flops = 6.0 * sum(int(np.prod(p["w"].shape))
+                               for p in params["fc"])
+    t_fc = args.batch * head_flops / max(d.peak_flops for d in devices)
+    # 2-D (g, mp) search: powers of two up to the cluster's size;
+    # infeasible points (memory, group width) are skipped by the planner
+    n = len(devices)
+    mp_candidates = [m for m in (1, 2, 4, 8, 16) if m <= n]
+    plan = cluster.best_allocation(devices, global_batch=args.batch,
+                                   t_fc=t_fc, cost=cost,
+                                   mp_candidates=mp_candidates)
+    say(plan.describe())
+    return plan
 
 
 def main(argv=None):
@@ -147,10 +189,19 @@ def main(argv=None):
                     help="sink the run's metric stream (step_s, "
                          "data_wait_s, h2d_s, loss) to this JSONL file "
                          "(schema: repro_torch.obs.metrics)")
-    # flags of the JAX launcher whose subsystems are not ported yet
-    ap.add_argument("--plan", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--cluster-spec", type=str, default="",
+                    help="heterogeneous cluster, e.g. "
+                         "'8xgpu-g2.2xlarge,8xcpu-c4.4xlarge' (device "
+                         "names: repro_torch.cluster.list_devices())")
+    ap.add_argument("--plan", action="store_true",
+                    help="plan g / device packing / batch shares over "
+                         "--cluster-spec and train share-weighted "
+                         "(overrides --groups and --mp)")
+    # a flag of the JAX launcher whose subsystem is not ported yet
     ap.add_argument("--replay-trace", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.plan and not args.cluster_spec:
+        ap.error("--plan requires --cluster-spec")
     for flag, why in _NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
@@ -194,11 +245,29 @@ def _train(args, device):
 
     cfg, params, loss_fn, data, head_filter = _build_workload(args, device)
     mom = init_momentum(params)
-    engine = Engine(loss_fn, strategy=args.strategy, num_groups=args.groups,
+    groups, group_weights, micro_sizes, mp = args.groups, None, None, args.mp
+    if args.plan:
+        plan = _plan(args, params, cfg, say)
+        groups, group_weights = plan.g, plan.weights
+        micro_sizes = plan.allocation.microbatches
+        mp = plan.mp
+        # the plan's mp is sized for the --cluster-spec devices; when this
+        # run has a smaller process group (one process: world 1),
+        # mp-sharded storage has no mesh to live on — store unsharded and
+        # keep the rest of the plan
+        world = rank_and_world()[1]
+        if args.exec_mode == "auto" and mp > 1 and world < groups * mp:
+            say(f"plan chose mp={mp} for the cluster; local pool has "
+                f"{world} device(s) < g*mp={groups * mp} — storing params "
+                "unsharded here (mp=1)")
+            mp = 1
+    engine = Engine(loss_fn, strategy=args.strategy, num_groups=groups,
                     lr=args.lr, momentum=args.momentum,
-                    weight_decay=args.weight_decay, head_filter=head_filter,
+                    weight_decay=args.weight_decay,
+                    group_weights=group_weights, micro_sizes=micro_sizes,
+                    head_filter=head_filter,
                     update_impl=args.update_impl, exec_mode=args.exec_mode,
-                    mp=args.mp, device=device,
+                    mp=mp, device=device,
                     **({"bucket_bytes": args.bucket_bytes}
                        if args.bucket_bytes is not None else {}),
                     checkpoint_dir=args.ckpt,
@@ -207,7 +276,8 @@ def _train(args, device):
     what = (f"conv={cfg.conv_impl}" if args.arch in C.CNN_CONFIGS
             else f"seq={args.seq}")
     say(f"arch={cfg.name} params={n_params} {what} "
-        f"{engine.describe(args.batch // args.groups)}")
+        f"{engine.describe(args.batch // groups)}"
+        + (" (planned)" if args.plan else ""))
     params, mom, losses = engine.run(params, mom, data, steps=args.steps,
                                      log_every=1, log=say)
     say(f"final loss {np.mean(losses[-5:]):.4f}")
@@ -218,7 +288,7 @@ def _train(args, device):
     if args.metrics_out and rank == 0:
         from repro_torch.obs import run_metadata
         run = run_metadata(device=device.type, extra={
-            "arch": args.arch, "groups": args.groups, "batch": args.batch,
+            "arch": args.arch, "groups": groups, "batch": args.batch,
             "steps": args.steps, "strategy": args.strategy})
         n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
         print(f"metrics -> {args.metrics_out} ({n} records)")

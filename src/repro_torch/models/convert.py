@@ -4,8 +4,10 @@ and the one dtype cast the server does at load.
 ``params_from_jax`` takes the JAX params as a tree of numpy arrays (e.g.
 ``jax.device_get(params)``; the port itself never imports JAX) and copies
 it leaf by leaf: the same nested keys and lists (the CNN's ``{"conv":
-[...], "fc": [...]}``), the same stacked ``blocks`` leading layer axis,
-the same layouts and dtypes (fp32 stays fp32, bf16 stays bf16).
+[...], "fc": [...]}``, the ``core/workload`` models' flat dicts), the same
+stacked ``blocks`` leading layer axis, the same layouts and dtypes (fp32
+stays fp32, bf16 stays bf16). ``state_from_jax`` does the same for a
+Runner state ``(params, step_counter)`` (``core.workload.init_state``).
 
 ``to_compute_dtype`` casts every weight that the layers cast to the
 compute dtype at each use (projections, biases, MLP, embedding) once, so
@@ -38,6 +40,13 @@ def params_from_jax(tree, cfg=None, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [params_from_jax(v, None, device) for v in tree]
     return _tensor(tree, device)
+
+
+def state_from_jax(state, device="cpu"):
+    """A JAX Runner state ``(params as numpy leaves, step counter)`` as the
+    port's ``(params on device, int)``."""
+    params, step = state
+    return params_from_jax(params, None, device), int(step)
 
 
 def _is_norm(key: str) -> bool:

@@ -5,6 +5,11 @@ the run-environment stamp.
 - ``obs.metrics``      counters/gauges/series + schema-validated JSONL
 - ``obs.chrome_trace`` spans + metrics + EventTraces -> Perfetto
 - ``obs.meta``         torch/CUDA/device stamp
+- ``obs.report``       recompute the planner's T(g,alloc) from a run
+- ``obs.validate``     the artifact gate (metrics sink, Chrome trace)
+
+``obs.report`` and ``obs.validate`` are imported by their users: importing
+them here would shadow their ``python -m`` entry points.
 """
 from repro_torch.obs import spans
 from repro_torch.obs.chrome_trace import chrome_trace, export_chrome_trace

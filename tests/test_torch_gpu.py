@@ -13,13 +13,16 @@ versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32;
 the flash arm raises when asked for gradients.
 The fused update is bitwise its plain version (same fp32 order, no FMA
-contraction); the conv kernels sum over K or M in another order than
+contraction), with a plan's unequal group weights too; the conv kernels sum over K or M in another order than
 cuBLAS (all three in 3xTF32 on tensor cores): max abs error
 <= 1e-4 * max|want| and relative RMS <= 1e-5; the lowered residual is
 bitwise; a training round agrees with the plain arms within 1e-4. The bf16
 flash kernel's edge cases and the split paged kernel's bf16 cases also hold
 a relative RMS error <= 1e-2; the split kernels (paged decode, wgrad)
-give the same bits on a second call.
+give the same bits on a second call. The optimizer path's shapes: the conv
+kernels at CaffeNet's planned per-group batch (93, the largest share of
+the ``2xgpu-g2.2xlarge,2xcpu-c4.4xlarge`` plan at batch 256) and at
+``cnn_classify``'s 12x12x1 image; ``profile_device`` times finished work.
 """
 import dataclasses
 import warnings
@@ -38,7 +41,7 @@ from repro_torch.kernels.lowering_conv import bwd as lc_bwd
 from repro_torch.kernels.lowering_conv.lowering_conv import lowering_conv_cuda
 from repro_torch.kernels.lowering_conv.ref import lower, lowered_conv_ref
 from repro_torch.models import cnn as C
-from repro_torch.optim.closed_form import grouped_coeffs
+from repro_torch.optim.closed_form import grouped_coeffs, head_coeffs
 from repro_torch.optim.sgd import init_momentum
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -289,11 +292,24 @@ def _fp32_close(got, want):
     assert rel <= 1e-5, rel
 
 
+PLANNED_GROUP_BATCH = 93          # max((93, 93, 35, 35)): the planned round
+PLANNED_WEIGHTS = (93 / 256, 93 / 256, 35 / 256, 35 / 256)
+
+
+def _cnn_classify_layers(batch):
+    from repro_torch.core.workload import cnn_config
+    return C.conv_layer_shapes(cnn_config(), batch)
+
+
 @pytest.mark.parametrize("x_shape,w_shape,stride", [
     ((4, 23, 23, 3), (11, 11, 3, 16), 4),       # conv1-like, K = 363
     ((3, 13, 13, 24), (5, 5, 24, 70), 1),       # ragged Cout tile
     ((2, 9, 9, 40), (3, 3, 40, 64), 1),
-    ((2, 12, 12, 8), (3, 3, 8, 16), 2)])        # stride-2 dgrad
+    ((2, 12, 12, 8), (3, 3, 8, 16), 2),         # stride-2 dgrad
+    # the optimizer path: CaffeNet at the planned per-group batch, and
+    # cnn_classify's 12x12x1 image (K = 9) at g = 1 and g = 2
+    *C.conv_layer_shapes(C.CAFFENET, PLANNED_GROUP_BATCH),
+    *_cnn_classify_layers(16), *_cnn_classify_layers(8)])
 def test_conv_kernels_match_plain(card, x_shape, w_shape, stride):
     g = torch.Generator(device=card).manual_seed(7)
     x = torch.randn(x_shape, generator=g, device=card)
@@ -378,28 +394,70 @@ def test_wgrad_3xtf32_kernel_holds_fp32_limits(card, m, kshape):
     assert torch.equal(lc_bwd.wgrad_cuda(low, dy, kshape), dw)  # no atomics
 
 
-def test_training_kernel_arms_match_plain_arms(card):
-    """caffenet-smoke, g=2, three rounds: lowering_cuda + the fused-update
-    kernel against lowering + the plain update, and every kernel of the
-    path launched."""
+@pytest.mark.parametrize("g,sizes", [(2, None), (4, (6, 4, 3, 3))])
+def test_training_kernel_arms_match_plain_arms(card, g, sizes):
+    """caffenet-smoke, three rounds at g=2 with equal shares of a batch of
+    8, and at g=4 with a plan's unequal shares (6, 4, 3, 3) of 16 and their
+    weights: lowering_cuda + the fused-update kernel against lowering + the
+    plain update, and every kernel of the path launched."""
     base = C.get_cnn_smoke_config("caffenet")
     params = C.init_params(torch.Generator(device=card).manual_seed(0), base)
+    batch = sum(sizes) if sizes else 8
+    weights = tuple(s / batch for s in sizes) if sizes else None
     out = {}
     for conv, upd in (("lowering", "torch"), ("lowering_cuda", "cuda")):
         cfg = dataclasses.replace(base, conv_impl=conv)
         eng = Engine(lambda p, b, cfg=cfg: C.loss_fn(p, b, cfg),
-                     num_groups=2, lr=0.05, momentum=0.3, update_impl=upd,
+                     num_groups=g, lr=0.05, momentum=0.3, update_impl=upd,
+                     group_weights=weights, micro_sizes=sizes,
                      head_filter=C.head_filter, device=card)
         data = P.SyntheticImages(P.DataConfig(
-            batch_size=8, image_size=cfg.image_size,
+            batch_size=batch, image_size=cfg.image_size,
             channels=cfg.in_channels, num_classes=cfg.num_classes))
         n = lc_bwd.dgrad_cuda.launches
         out[conv] = eng.run(params, init_momentum(params),
                             data.batches(3), steps=3)
         if conv == "lowering_cuda":
-            assert lc_bwd.dgrad_cuda.launches - n == 3 * 2 * 1
+            assert lc_bwd.dgrad_cuda.launches - n == 3 * g * 1
     np.testing.assert_allclose(out["lowering_cuda"][2], out["lowering"][2],
                                rtol=1e-4, atol=1e-4)
     for a, b in zip(T.leaves(out["lowering_cuda"][0]),
                     T.leaves(out["lowering"][0])):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the optimizer path: planned shares, cnn_classify, the black-box probe
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [7, 4096, 100003])
+def test_fused_update_kernel_is_bitwise_plain_with_plan_weights(card, n):
+    g = torch.Generator(device=card).manual_seed(n)
+    w = torch.randn(n, generator=g, device=card)
+    v = torch.randn(n, generator=g, device=card)
+    gs = torch.randn(4, n, generator=g, device=card)
+    kw = dict(lr=0.01, momentum=0.3, weight_decay=5e-4,
+              group_weights=PLANNED_WEIGHTS)
+    for c in (grouped_coeffs(4, **kw), head_coeffs(4, **kw)):
+        assert len(set(c.a)) > 1              # non-uniform coefficients
+        got = fu_ops.fused_update_cuda(w, v, gs, c)
+        want = fused_update_ref(w, v, gs, c)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_profile_device_synchronizes(card):
+    """A step that queues ~10 ms of device work and returns at once: the
+    probe reads the clock after the work, not after the enqueue."""
+    from repro_torch.cluster import profile_device
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles)                 # warm the spin kernel
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    sleep_s = start.elapsed_time(end) / 1e3
+    thr = profile_device(lambda: torch.cuda._sleep(cycles), (),
+                         batch_size=1, warmup=1, iters=3, device=card)
+    assert 1.0 / thr >= 0.8 * sleep_s, (1.0 / thr, sleep_s)

@@ -12,7 +12,8 @@
   maximum over these ten runs: 1.79e-6 on a loss and 2.62e-5 on a
   parameter, both caffenet-smoke at g=1; every other run stays within
   1.2e-7 and 3.0e-8.
-- the engine's and launcher's refusals (unported strategies and flags,
+- the engine's and launcher's refusals (the unported strategy and flag,
+  the ``delayed`` strategy's missing per-round step,
   the group mesh without a process group or with too few ranks, kernel
   arms on the CPU) and the launcher on the CPU. The SPMD engine and the
   launcher across ranks are ``test_torch_spmd*.py``'s.
@@ -172,8 +173,9 @@ def test_engine_refusals():
         Engine(loss_fn, mp=2, device="cpu", update_impl="torch")
     with pytest.raises(ValueError, match="unknown exec_mode"):
         Engine(loss_fn, exec_mode="mesh", device="cpu", update_impl="torch")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        Engine(loss_fn, strategy="delayed", device="cpu", update_impl="torch")
+    with pytest.raises(ValueError, match="no per-round step"):
+        Engine(loss_fn, strategy="delayed", device="cpu",
+               update_impl="torch").step({}, {}, {"x": torch.zeros(2)})
     with pytest.raises(NotImplementedError, match="item 13"):
         get_strategy("trace-replay")
     with pytest.raises(ValueError, match="pinned to g=1"):
@@ -184,7 +186,8 @@ def test_engine_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Engine(loss_fn)                            # device="cuda"
-    assert list_strategies() == ("grouped-fused", "grouped-scan", "sync")
+    assert list_strategies() == ("delayed", "grouped-fused", "grouped-scan",
+                                 "sync")
 
 
 def _env():
@@ -210,7 +213,8 @@ def test_launcher_trains_smoke_lenet_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--arch", "qwen2-moe-a2.7b"], "item 11"), (["--plan"], "item 14"),
+    (["--arch", "qwen2-moe-a2.7b"], "item 11"),
+    (["--replay-trace", "t.npz"], "item 13"),
     (["--exec-mode", "spmd"], "initialized process group"),
     (["--mp", "2"], "needs >= 2 ranks"),
     (["--conv-impl", "lowering_cuda", "--update-impl", "torch"],
