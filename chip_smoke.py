@@ -22,12 +22,16 @@ passed over, nothing falls back to the CPU):
    served prefill bucket), 512 and 1024, windowed, ragged, and with per-row
    query offsets, then the bf16 tensor-core kernel's edges (hd 32 and 64,
    Sk off the 64-key tile, a window that skips leading tiles, Sq = 1 and
-   a chunk at offsets, a window without causal masking);
+   a chunk at offsets, a window without causal masking); both kernels at
+   G = 1 (qwen2-moe-a2.7b: 16 query heads on 16 kv heads), and flash
+   attention at recurrentgemma-2b's local attention (hd 256, 10 query
+   heads on one kv head, window 2048 at 2 x 4096, ragged at 2100, and a
+   chunk at per-row offsets);
 4. kernel timings (CUDA events around device work only, L2 flushed before
    each launch) beside the plain version, one PyTorch library call
    computing the same function (timed here only; the port never calls
    it), and the card's bound; paged decode also with every row at a full
-   table;
+   table, flash attention also at recurrentgemma-2b's prefill shapes;
 5. the slice at full width: ``ContinuousServer`` on qwen2-7b (28 layers,
    d_model 3584, bf16 weights made from a seed) with ``attn_impl="cuda"``
    serves Poisson requests twice — scan prefill, then parallel prefill —
@@ -121,7 +125,29 @@ passed over, nothing falls back to the CPU):
    conv is fed by data, so no dgrad) once with ``update_impl="cuda"`` and
    once with ``"torch"``: the same decisions; then over the ``delayed``
    Runner. Every run of (a)-(c) zeroes the launch counts just before it
-   and reads them just after.
+   and reads them just after;
+14. the MoE, SSM and hybrid families: (a) ``ContinuousServer`` on
+   qwen2-moe-a2.7b at full published width and depth (24 layers, d_model
+   2048, 16/16 heads of 128, 60 experts top-4 of width 1408 + 4 shared,
+   vocab 151,936; bf16 weights from seed 0 drawn one layer at a time, the
+   router fp32), phase 5's traffic with scan and with parallel prefill,
+   launch counts checked per run (B6 once a layer a decode and
+   scan-prefill step, B5 once a layer a parallel prefill), then a
+   profiled decode step; (b) phase 6's fp32 checks at its width, 2
+   layers; (c) ``launch/serve.serve`` on mamba2-2.7b (64 layers) and
+   recurrentgemma-2b (26 layers) at full width and depth, bf16, batch 4 x
+   prompt 64 + 16 generated, every step's logits finite, and at full width
+   with 2 (3) layers in fp32 ``decode_step`` over the prompt against
+   ``forward``'s last-position logits within ``1e-4``; (d)
+   ``make_prefill_step`` on recurrentgemma-2b at full width, 3 layers,
+   2 x 4096 (the window masks), through the flash kernel and the plain
+   arm, each held to the fp32 prefill as in phase 12 (d); (e) ``Engine``
+   at g = 4 ``grouped-fused``, 16 x 512 tokens, fp32 params from seed 0,
+   bf16 compute, remat on, on qwen2-moe-a2.7b at 2 of 24 layers (1
+   warm-up + 3 rounds), mamba2-2.7b at 2 of 64 and recurrentgemma-2b at 3
+   of 26 (1 + 2 each; the cuts are the runs' ``reduced`` lists), B1 once
+   a leaf a round, every loss finite, peak memory beside (4 + g)·P·4 B;
+   on the MoE round's own gradient stacks B1 bitwise its plain version.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -152,6 +178,8 @@ BF16_REL_RMS = 1e-2            # ~2.5 bf16 ulps of relative error, on average
 
 PAGED = dict(B=8, K=4, G=7, hd=128, page=16, n_pages=64)   # qwen2-7b serving
 FLASH = dict(B=8, H=28, K=4, hd=128)
+RG_FLASH = (2, 10, 1, 256)     # recurrentgemma-2b prefill: (B, H, K, hd)
+RG_WINDOW = 2048
 SPIN_CYCLES = 20_000_000       # ~10 ms at the H100's clock: covers any enqueue
 
 CNN_GROUP_BATCH = 64           # CaffeNet batch 256 over g = 4 groups
@@ -326,6 +354,9 @@ def phase_check(torch) -> dict:
             ("masked splits ring", dict(pos=[5, 70, 0, 200, 63, 1500, 130,
                                              1000], ring=True, page=64,
                                         n_pages=16), W),
+            # qwen2-moe-a2.7b: 16 kv heads of one query head each (G = 1)
+            ("G=1 K=16", dict(pos=[0, 15, 16, W - 1, 900, 100, 517, 777],
+                              stale=(4,), K=16, G=1), None),
         ]
         for label, kw, window in cases:
             args = paged_inputs(torch, dtype, **kw)
@@ -375,7 +406,17 @@ def phase_check(torch) -> dict:
                 ("window 64 at 1024", (B, H, K, hd), 1024, 1024,
                  {"window": 64}),
                 ("non-causal window 100 at 333", (2, 8, 2, hd), 333, 333,
-                 {"causal": False, "window": 100})):
+                 {"causal": False, "window": 100}),
+                # qwen2-moe-a2.7b's parallel prefill: G = 1
+                ("G=1 H=K=16 causal 256", (8, 16, 16, 128), 256, 256, {}),
+                # recurrentgemma-2b's local attention: hd 256, 10 query
+                # heads on one kv head, window 2048 at 4096 (and ragged)
+                ("hd256 G=10 window 2048 at 4096", RG_FLASH, 4096, 4096,
+                 {"window": 2048}),
+                ("hd256 G=10 window 2048 ragged 2100", RG_FLASH, 2100,
+                 2100, {"window": 2048}),
+                ("hd256 G=10 q_offsets chunk 100x3000", RG_FLASH, 100, 3000,
+                 {"window": 2048, "q_offsets": (0, 2900)})):
             if "q_offsets" in kw:
                 lo, hi = kw["q_offsets"]
                 kw = dict(kw, q_offsets=torch.randint(
@@ -484,12 +525,42 @@ def phase_time(torch) -> dict:
                                           library_ms=lib, bound_ms=b_ms,
                                           bound_by=b_by)
         del q, k, v, qh, kh, vh
+
+    # flash prefill at recurrentgemma-2b's shapes: hd 256, 10 query heads
+    # on one kv head, window 2048, 2 x 4096
+    B, H, K, hd = RG_FLASH
+    S, Wn = 4096, RG_WINDOW
+    q = torch.randn(B, S, H, hd, generator=g, device="cuda").bfloat16()
+    k = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+    v = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    pos = torch.arange(S, device="cuda")
+    band = ((pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - Wn))[None, None]
+    pairs = int(band.sum())
+    nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+    flops = 4 * B * H * hd * pairs
+    ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True,
+                                                   window=Wn),
+                 iters=20, flush=flush)
+    plain = cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True,
+                                                       window=Wn),
+                    iters=5, flush=flush)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=band, enable_gqa=True), iters=20, flush=flush)
+    b_ms, b_by = bound(nbytes, flops)
+    log(f"[time] flash_attention bf16 causal window {Wn} B={B} H={H} K={K} "
+        f"hd={hd} Sq=Sk={S} ({pairs} live pairs a head): kernel_ms={ms:.4f} "
+        f"plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA enable_gqa, the "
+        f"band as a boolean mask) bound_ms={b_ms:.5f} ({b_by}) "
+        f"achieved={flops / ms / 1e9:.1f} TFLOP/s")
+    del q, k, v, qh, kh, vh, band
     del flush
     torch.cuda.empty_cache()
     return out
 
 
-def _drive(torch, srv, reqs, mode: str) -> dict:
+def _drive(torch, srv, reqs, mode: str, tag: str = "slice") -> dict:
     """One served run with both launch counts zeroed just before it; the
     counts read just after must match the run's own steps and prefills."""
     from repro_torch.kernels.flash_attention import ops as fa
@@ -511,7 +582,7 @@ def _drive(torch, srv, reqs, mode: str) -> dict:
         want_pa, want_fa = L * (steps + sum(buckets)), 0
     else:
         want_pa, want_fa = L * steps, L * len(buckets)
-    log(f"[slice:{mode}] decode_steps={steps} prefills={buckets} "
+    log(f"[{tag}:{mode}] decode_steps={steps} prefills={buckets} "
         f"paged_attention.launches={n_pa} (want {want_pa}) "
         f"flash_attention.launches={n_fa} (want {want_fa})")
     if (n_pa, n_fa) != (want_pa, want_fa):
@@ -529,7 +600,7 @@ def _drive(torch, srv, reqs, mode: str) -> dict:
             fail(f"{mode} run: request {r.rid} tokens malformed: {t}")
     step_ms = [1e3 * v for v in
                srv.registry.series("serving.decode_step_s").values]
-    log(f"[slice:{mode}] {len(rep.rids)} reqs {rep.total_tokens} tok in "
+    log(f"[{tag}:{mode}] {len(rep.rids)} reqs {rep.total_tokens} tok in "
         f"{rep.makespan:.3f} s: {rep.throughput:.1f} tok/s "
         f"p50={rep.percentile(50) * 1e3:.1f} ms "
         f"p99={rep.percentile(99) * 1e3:.1f} ms "
@@ -549,7 +620,8 @@ def log_port_kernels(kernels, names) -> None:
                 f"{name[:100]}")
 
 
-def phase_profile(torch, srv, steps: int = 5) -> None:
+def phase_profile(torch, srv, steps: int = 5,
+                  what: str = "full-width decode step") -> None:
     """Full-width decode steps (8 active slots at ~200-token contexts):
     wall time per step on the host clock (no profiler), device busy time
     per step (the sum of kernel times under ``torch.profiler``), the
@@ -586,7 +658,7 @@ def phase_profile(torch, srv, steps: int = 5) -> None:
         kernels.append((us / steps / 1e3, e.count / steps, e.key))
     busy = sum(k[0] for k in kernels)
     kernels.sort(reverse=True)
-    log(f"[profile] full-width decode step, 8 active slots: wall "
+    log(f"[profile] {what}, 8 active slots: wall "
         f"{wall_ms:.2f} ms (host clock, no profiler), device busy "
         f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
         f"{sum(k[1] for k in kernels):.0f} kernels a step")
@@ -655,17 +727,16 @@ def _close(torch, what, got, want, tol=1e-4) -> float:
     return err
 
 
-def phase_parity(torch) -> None:
-    from repro_torch.configs import get_config
-    from repro_torch.core import tree
+def _parity_fp32(torch, cfg, g, tag: str):
+    """fp32, ``cfg`` at full width: the ``"cuda"`` and ``"torch"`` arms of
+    ``paged_decode_step`` over 6 steps, then the server's parallel prefill
+    at the served bucket (the ``transformer.forward`` logits and the pages
+    ``_parallel_prefill`` writes), within 1e-4. Returns the prompts."""
     from repro_torch.models import transformer as T
     from repro_torch.serving import (ContinuousServer, PageAllocator,
                                      PagedCacheSpec, init_pages,
                                      paged_decode_step)
-    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
-                              compute_dtype="float32")
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5)
     params = T.init_params(g, cfg)
     spec = PagedCacheSpec.for_config(cfg, num_slots=8, page_size=16,
                                      max_seq=1024)
@@ -690,8 +761,8 @@ def phase_parity(torch) -> None:
                   for impl in ("torch", "cuda")}
         worst = max(worst, _close(torch, f"decode step {step} logits",
                                   logits["cuda"], logits["torch"]))
-    log(f"[parity] qwen2-7b widths, 2 layers, fp32, 6 decode steps: cuda vs "
-        f"torch logits max_abs_err={worst:.3e} (tol 1e-4) ok")
+    log(f"[{tag}] {cfg.name} widths, {cfg.num_layers} layers, fp32, 6 decode "
+        f"steps: cuda vs torch logits max_abs_err={worst:.3e} (tol 1e-4) ok")
     del pages, base
 
     # the server's parallel prefill at the served bucket (Pb = 256): the
@@ -720,11 +791,22 @@ def phase_parity(torch) -> None:
         del srv
     e_pages = max(_close(torch, f"prefill pages {k}", written["cuda"][k],
                          written["torch"][k]) for k in ("k", "v"))
-    log(f"[parity] qwen2-7b widths, 2 layers, fp32, parallel prefill of 8 "
-        f"prompts {plens} (bucket 256): cuda vs torch forward logits "
-        f"max_abs_err={e_logits:.3e}, written pages max_abs_err="
+    log(f"[{tag}] {cfg.name} widths, {cfg.num_layers} layers, fp32, parallel "
+        f"prefill of 8 prompts {plens} (bucket 256): cuda vs torch forward "
+        f"logits max_abs_err={e_logits:.3e}, written pages max_abs_err="
         f"{e_pages:.3e} (tol 1e-4) ok")
-    del params, written
+    return prompts
+
+
+def phase_parity(torch) -> None:
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_config("qwen2-7b"), num_layers=2,
+                              compute_dtype="float32")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    prompts = _parity_fp32(torch, cfg, g, "parity")
 
     # bf16, as serving runs it: the fp32 checks above reach only the
     # CUDA-core kernel; this one reaches the tensor-core kernel. Both bf16
@@ -1458,10 +1540,11 @@ def _free(torch) -> None:
     torch.cuda.empty_cache()
 
 
-def lm_host_params(torch, cfg):
+def lm_host_params(torch, cfg, tag: str = "lm"):
     """fp32 params from seed 0 (drawn on the card, where it takes
     milliseconds) and zero momentum, both on the host: the engine's copy is
     then the only one on the card."""
+    from repro_torch.configs import get_config
     from repro_torch.core import tree as T
     from repro_torch.models import transformer as M
     t0 = time.perf_counter()
@@ -1472,10 +1555,11 @@ def lm_host_params(torch, cfg):
     _free(torch)
     mom = T.tree_map(torch.zeros_like, host)
     n = sum(t.numel() for t in T.leaves(host))
-    log(f"[lm] qwen2-7b d_model {cfg.d_model} heads {cfg.num_heads}/"
+    log(f"[{tag}] {cfg.name} d_model {cfg.d_model} heads {cfg.num_heads}/"
         f"{cfg.num_kv_heads} head_dim {cfg.resolved_head_dim} d_ff "
         f"{cfg.d_ff} vocab {cfg.vocab_size}, {cfg.num_layers} layers "
-        f"(reduced: num_layers 28 -> {cfg.num_layers}), compute "
+        f"(reduced: num_layers {get_config(cfg.name).num_layers} -> "
+        f"{cfg.num_layers}), compute "
         f"{cfg.compute_dtype}, remat {cfg.remat}: {n} fp32 params in "
         f"{len(T.leaves(host))} leaves ({4 * n / 1e9:.2f} GB), params and "
         f"momentum on the host in {time.perf_counter() - t0:.1f} s")
@@ -1489,22 +1573,24 @@ def _all_counts():
             "paged": pa.paged_attention}
 
 
-def phase_lm_train(torch, cfg, host, mom, n_params) -> dict:
+def phase_lm_train(torch, cfg, host, mom, n_params, *,
+                   rounds: int = LM_ROUNDS, tag: str = "lm:a",
+                   profile: bool = True) -> dict:
     """(a) ``Engine`` trains the LM at g = 4 ``grouped-fused`` through B1:
-    one warm-up round and ``LM_ROUNDS``, launch counts zeroed before the
-    run and checked after it (B1 once a leaf a round, nothing else), then
-    one profiled round. Returns the run's launches, the params and
-    momentum it ends on, and a round's batch."""
+    one warm-up round and ``rounds``, launch counts zeroed before the run
+    and checked after it (B1 once a leaf a round, nothing else), then one
+    profiled round (if ``profile``). Returns the run's launches, the
+    params and momentum it ends on, and a round's batch."""
     from repro_torch.core import tree as T
     from repro_torch.data.pipeline import prefetch
     from repro_torch.engine import Engine
     from repro_torch.models import transformer as M
     dev = torch.device("cuda")
-    g, rounds = LM_GROUPS, 1 + LM_ROUNDS
+    g, rounds = LM_GROUPS, 1 + rounds
     eng = Engine(lambda p, b: M.lm_loss(p, b, cfg), strategy="grouped-fused",
                  num_groups=g, lr=LM_LR, momentum=LM_MU, update_impl="cuda",
                  device=dev)
-    log(f"[lm:a] {eng.describe(LM_BATCH // g)} batch {LM_BATCH} x seq "
+    log(f"[{tag}] {eng.describe(LM_BATCH // g)} batch {LM_BATCH} x seq "
         f"{LM_SEQ} ({LM_BATCH * LM_SEQ} tokens a round)")
     data = _lm_stream(cfg, LM_BATCH, LM_SEQ)
     counts = _all_counts()
@@ -1513,13 +1599,13 @@ def phase_lm_train(torch, cfg, host, mom, n_params) -> dict:
         fn.launches = 0
     params, mom, losses = eng.run(host, mom, data.batches(rounds),
                                   steps=rounds, log_every=1,
-                                  log=lambda m: log(f"[lm:a] {m}"))
+                                  log=lambda m: log(f"[{tag}] {m}"))
     torch.cuda.synchronize()
     got = {k: fn.launches for k, fn in counts.items()}
     n_leaves = len(T.leaves(params))
     want = {k: 0 for k in got}
     want["fused_update"] = n_leaves * rounds
-    log(f"[lm:a] {rounds} rounds: launches {got} (want {want})")
+    log(f"[{tag}] {rounds} rounds: launches {got} (want {want})")
     if got != want:
         fail(f"LM g={g} run: launch counts {got} != {want}")
     if len(losses) != rounds or not all(math.isfinite(x) for x in losses):
@@ -1530,27 +1616,29 @@ def phase_lm_train(torch, cfg, host, mom, n_params) -> dict:
     med = statistics.median(steady)
     tokens = LM_BATCH * LM_SEQ
     logits = (LM_BATCH // g) * LM_SEQ * cfg.vocab_size
-    log(f"[lm:a] losses {[round(x, 4) for x in losses]}; round ms (host "
+    log(f"[{tag}] losses {[round(x, 4) for x in losses]}; round ms (host "
         f"clock, after the warm-up round) median {med * 1e3:.1f} min "
         f"{min(steady) * 1e3:.1f} max {max(steady) * 1e3:.1f}; tokens/s "
         f"{tokens / med:.1f}; first round {tel.step_s[0] * 1e3:.1f} ms; "
         f"host data wait median "
         f"{statistics.median(tel.data_s[tel.skip:]) * 1e3:.1f} ms")
-    log(f"[lm:a] peak memory {peak / 1e9:.2f} GB; reckoned: (4 + g) x P x "
+    log(f"[{tag}] peak memory {peak / 1e9:.2f} GB; reckoned: (4 + g) x P x "
         f"4 B = {(4 + g) * n_params * 4 / 1e9:.2f} GB at the update (params "
         f"and momentum in and out, g gradient stacks) plus a group's fp32 "
         f"logits, log-softmax and their gradients ({logits} elements, "
         f"{4 * 4 * logits / 1e9:.2f} GB)")
     batch = next(prefetch(data.batches(1), device=dev))
-    phase_train_profile(
-        torch, eng, params, mom, batch,
-        f"qwen2-7b {cfg.num_layers}-layer round, batch {LM_BATCH} x seq "
-        f"{LM_SEQ}", ("fused_update",))
+    if profile:
+        phase_train_profile(
+            torch, eng, params, mom, batch,
+            f"{cfg.name} {cfg.num_layers}-layer round, batch {LM_BATCH} x "
+            f"seq {LM_SEQ}", ("fused_update",))
     return {"fused_update": got["fused_update"], "params": params,
             "mom": mom, "batch": batch}
 
 
-def phase_lm_update(torch, cfg, params, mom, batch) -> None:
+def phase_lm_update(torch, cfg, params, mom, batch, tag: str = "lm:b"
+                    ) -> None:
     """(b) B1 at the LM round's leaves: the round's own (g, ...) gradient
     stacks, the ``"cuda"`` and ``"torch"`` update arms bitwise equal on
     every leaf (params and momentum), and B1 over the leaves timed against
@@ -1585,12 +1673,12 @@ def phase_lm_update(torch, cfg, params, mom, batch) -> None:
         rows.append(f"{'.'.join(map(str, path))} {tuple(w.shape)} "
                     f"{ms:.4f}")
     b_ms, b_by = bound(4 * (g + 4) * n, (4 * g + 6) * n, FP32_FLOP_S)
-    log(f"[lm:b] B1 on each of the {len(rows)} leaves of the round's own "
+    log(f"[{tag}] B1 on each of the {len(rows)} leaves of the round's own "
         f"g={g} gradient stacks: cuda and torch arms bitwise equal (params "
         "and momentum) ok")
-    log(f"[lm:b] B1 per leaf, kernel ms (CUDA events, L2 flushed): "
+    log(f"[{tag}] B1 per leaf, kernel ms (CUDA events, L2 flushed): "
         + "; ".join(rows))
-    log(f"[lm:b] B1 over the {len(rows)} leaves ({n} elements): "
+    log(f"[{tag}] B1 over the {len(rows)} leaves ({n} elements): "
         f"{total_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; (2 + g + 2) x "
         f"4 B x P / {HBM_BYTES_S / 1e12:.2f} TB/s), "
         f"{b_ms / total_ms:.0%} of it")
@@ -1965,6 +2053,245 @@ def phase_opt(torch, run_ips: float) -> tuple:
     return {k: a[k] + b[k] + c[k] for k in a}, errs
 
 
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+#: (arch, layers kept, rounds after the warm-up) of phase 14 (e)
+FAMILY_TRAIN = (("qwen2-moe-a2.7b", 2, 3), ("mamba2-2.7b", 2, 2),
+                ("recurrentgemma-2b", 3, 2))
+FAMILY_SERVE = dict(batch=4, prompt_len=64, gen=16)
+RG_PREFILL_BATCH, RG_PREFILL_SEQ = 2, 4096
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.core import tree as T
+    return sum(t.numel() * t.element_size() for t in T.leaves(tree))
+
+
+def phase_moe_serve(torch) -> dict:
+    """(a) ``ContinuousServer`` on qwen2-moe-a2.7b at full width and depth
+    (bf16 weights from seed 0, the router fp32), the phase 5 traffic,
+    served with scan and with parallel prefill, launch counts zeroed
+    before each run and checked after it; then a profiled decode step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.serving import (ContinuousServer, poisson_trace,
+                                     sample_requests)
+    cfg = get_config("qwen2-moe-a2.7b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kw = dict(slots=8, page_size=16, max_seq=1024, attn_impl="cuda",
+              device="cuda", seed=0)
+    srv = ContinuousServer(cfg, **kw)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in T.leaves(srv.params))
+    m = cfg.moe
+    log(f"[moe] {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+        f"heads {cfg.num_heads}/{cfg.num_kv_heads} head_dim "
+        f"{cfg.resolved_head_dim} experts {m.num_experts} top-{m.top_k} of "
+        f"width {m.d_ff_expert} + {m.num_shared_experts} shared, vocab "
+        f"{cfg.vocab_size}: {n} params, weights "
+        f"{_tree_bytes(srv.params) / 1e9:.2f} GB (router "
+        f"{srv.params['blocks']['moe']['router'].dtype}), page pool "
+        f"{_tree_bytes(srv.pages) / 1e9:.3f} GB, made in "
+        f"{time.perf_counter() - t0:.1f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    reqs = sample_requests(poisson_trace(2.0, 8, seed=0), cfg,
+                           prompt_range=(64, 256), gen_range=(16, 32), seed=0)
+    lens = [len(r.prompt) for r in reqs]
+    log(f"[moe] 8 Poisson requests (2 req/s): prompts {lens} gens "
+        f"{[r.gen for r in reqs]}")
+    t0 = time.perf_counter()
+    srv.warmup(lens)
+    log(f"[moe] warmup {time.perf_counter() - t0:.1f} s")
+    scan = _drive(torch, srv, reqs, "scan", tag="moe")
+    params = srv.params
+    del srv
+    torch.cuda.empty_cache()
+    par_srv = ContinuousServer(cfg, params, prefill_mode="parallel", **kw)
+    par_srv.warmup(lens)
+    par = _drive(torch, par_srv, reqs, "parallel", tag="moe")
+    same = sum(int((scan["rep"].tokens[r.rid] == par["rep"].tokens[r.rid]
+                    ).sum()) for r in reqs)
+    log(f"[moe] scan vs parallel prefill: {same}/{scan['rep'].total_tokens} "
+        "generated tokens equal (bf16, and a parallel prefill's expert "
+        "capacity is per prompt bucket: not required to be equal)")
+    phase_profile(torch, par_srv, what=f"{cfg.name} decode step")
+    log(f"[moe] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    del par_srv, params
+    _free(torch)
+    return {"paged": scan["paged"] + par["paged"], "flash": par["flash"]}
+
+
+def phase_moe_parity(torch) -> None:
+    """(b) phase 6's fp32 checks at qwen2-moe-a2.7b's full width, 2
+    layers."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("qwen2-moe-a2.7b"), num_layers=2,
+                              compute_dtype="float32")
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(6)
+    _parity_fp32(torch, cfg, g, "moe:b")
+    _free(torch)
+
+
+def _finite_decode(torch):
+    """Wrap ``transformer.decode_step`` so that every step's logits are
+    checked finite on the card (one flag, read at the end)."""
+    from repro_torch.models import transformer as M
+    real = M.decode_step
+    flag = {"ok": torch.ones((), dtype=torch.bool,
+                             device=torch.device("cuda")), "n": 0}
+
+    def checked(*a, **k):
+        logits, cache = real(*a, **k)
+        flag["ok"] &= torch.isfinite(logits).all()
+        flag["n"] += 1
+        return logits, cache
+
+    M.decode_step = checked
+    return flag, lambda: setattr(M, "decode_step", real)
+
+
+def phase_family_serve(torch) -> None:
+    """(c) ``launch/serve.serve`` on mamba2-2.7b and recurrentgemma-2b at
+    full width and depth (bf16 weights from seed 0), every step's logits
+    finite; then at full width, 2 layers (3 for the hybrid), fp32:
+    ``decode_step`` over a prompt gives ``forward``'s last-position logits
+    within 1e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    b, p, n = (FAMILY_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    for arch, layers in (("mamba2-2.7b", 2), ("recurrentgemma-2b", 3)):
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        flag, restore = _finite_decode(torch)
+        try:
+            toks, t_pre, t_dec = SV.serve(cfg, batch=b, prompt_len=p, gen=n,
+                                          device=dev)
+        finally:
+            restore()
+        if not bool(flag["ok"]) or flag["n"] != p + n - 1:
+            fail(f"{arch} serve: logits finite {bool(flag['ok'])} over "
+                 f"{flag['n']} decode steps (want {p + n - 1})")
+        if toks.shape != (b, n) or not ((toks >= 0)
+                                        & (toks < cfg.vocab_size)).all():
+            fail(f"{arch} serve: tokens {toks}")
+        log(f"[family:c] {arch} {cfg.num_layers} layers d_model "
+            f"{cfg.d_model}, bf16, static batch {b} x prompt {p} + {n} "
+            f"generated: prefill {b * p / t_pre:.1f} tok/s ({t_pre:.3f} s, "
+            f"a decode-step loop), decode {b * (n - 1) / t_dec:.1f} tok/s "
+            f"({t_dec / (n - 1) * 1e3:.2f} ms a step), every step's logits "
+            f"finite, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        _free(torch)
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  compute_dtype="float32")
+        g = torch.Generator(device=dev).manual_seed(7)
+        params = M.init_params(g, cfg)
+        toks = torch.randint(cfg.vocab_size, (b, p), generator=g, device=dev)
+        with torch.no_grad():
+            want = M.forward(params, {"tokens": toks}, cfg)[0][:, -1:]
+            got, _ = M.prefill(params, M.init_cache(cfg, b, p, device=dev),
+                               toks, cfg)
+        err = _close(torch, f"{arch} decode_step over the prompt vs forward",
+                     got, want)
+        log(f"[family:c] {arch} widths, {layers} layers, fp32: decode_step "
+            f"over {p} prompt tokens vs forward's last-position logits "
+            f"max_abs_err={err:.3e} (tol 1e-4) ok")
+        del params, want, got
+        _free(torch)
+
+
+def phase_rg_prefill(torch) -> dict:
+    """(d) ``make_prefill_step`` on recurrentgemma-2b at full width, 3
+    layers (one super-block), batch 2 x 4096: its local attention (hd 256,
+    G = 10, window 2048) through the flash kernel and through the plain
+    arm, both in bf16, each held to the fp32 prefill."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("recurrentgemma-2b"), num_layers=3)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(8), cfg)
+    b, s = RG_PREFILL_BATCH, RG_PREFILL_SEQ
+    toks = torch.randint(cfg.vocab_size, (b, s), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(9))
+    shape = InputShape("prefill", s, b, "prefill")
+    batch = {"tokens": toks}
+    truth = S.make_prefill_step(dataclasses.replace(
+        cfg, compute_dtype="float32"), shape)(params, batch)[0].float()
+    out = {"torch": S.make_prefill_step(cfg, shape)(params, batch)[0]}
+    fa.flash_attention.launches = 0
+    out["cuda"] = S.make_prefill_step(cfg, shape, attn_impl="cuda")(
+        params, batch)[0]
+    torch.cuda.synchronize()
+    flash = fa.flash_attention.launches
+    n_attn = cfg.num_layers // len(cfg.hybrid.pattern)
+    if flash != n_attn:
+        fail(f"recurrentgemma prefill step: {flash} flash launches, want "
+             f"{n_attn}")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    err = {k: rel(v.float(), truth) for k, v in out.items()}
+    if not torch.isfinite(out["cuda"]).all() or (
+            err["cuda"] > err["torch"] or err["cuda"] > 2 * BF16_REL_RMS):
+        fail(f"recurrentgemma prefill step bf16 last-position logits: "
+             f"relative RMS error against fp32 {err['cuda']:.3e} (cuda) vs "
+             f"{err['torch']:.3e} (torch); the cuda arm must be no further "
+             f"and within {2 * BF16_REL_RMS}")
+    log(f"[family:d] recurrentgemma-2b widths, {cfg.num_layers} layers, "
+        f"make_prefill_step batch {b} x {s} (window {cfg.hybrid.local_window} "
+        f"masks): last-position logits rel_rms against the fp32 prefill "
+        f"cuda={err['cuda']:.3e} torch={err['torch']:.3e} (cuda must be <= "
+        f"torch and <= {2 * BF16_REL_RMS}); {flash} flash launches ok")
+    del params, truth, out
+    _free(torch)
+    return {"flash": flash}
+
+
+def phase_family_train(torch) -> dict:
+    """(e) ``Engine`` at g = 4 ``grouped-fused`` on each family at full
+    width and reduced depth (``FAMILY_TRAIN``), as phase 12 (a) trains
+    qwen2-7b; on the MoE round's own gradient stacks, B1 bitwise its plain
+    version."""
+    from repro_torch.configs import get_config
+    fused = 0
+    for arch, layers, rounds in FAMILY_TRAIN:
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        tag = f"train:{cfg.arch_type}"
+        host, mom, n = lm_host_params(torch, cfg, tag=tag)
+        a = phase_lm_train(torch, cfg, host, mom, n, rounds=rounds, tag=tag,
+                           profile=False)
+        fused += a["fused_update"]
+        if cfg.arch_type == "moe":
+            phase_lm_update(torch, cfg, a["params"], a["mom"], a["batch"],
+                            tag=tag)
+        del a, host, mom
+        _free(torch)
+    return {"fused_update": fused}
+
+
+def phase_families(torch) -> dict:
+    """Phase 14: (a) MoE served at full width, (b) MoE parity, (c) the
+    SSM and hybrid served, (d) B5 at recurrentgemma-2b's prefill, (e)
+    training. -> the launch counts of the runs on the main path."""
+    t0 = time.perf_counter()
+    launches = phase_moe_serve(torch)
+    phase_moe_parity(torch)
+    phase_family_serve(torch)
+    launches["flash"] += phase_rg_prefill(torch)["flash"]
+    launches.update(phase_family_train(torch))
+    log(f"[family] phase 14 in {time.perf_counter() - t0:.1f} s: launches "
+        f"{launches}")
+    return launches
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2018,6 +2345,9 @@ def main(argv=None) -> None:
     for name, n in opt.items():
         launches[name] += n
         errs[name] = max(errs[name], opt_errs[name])
+    _free(torch)
+    for name, n in phase_families(torch).items():
+        launches[name] += n
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

@@ -30,7 +30,7 @@
 // keys go through a 2-stage cp.async ring (16-byte copies, zero-filled past
 // Sk) whose rows are padded by 16 bytes, so the 8 row addresses of every
 // ldmatrix fall in distinct banks (~85 KB of dynamic shared memory at
-// hd=128). S = Q K^T runs on mma.sync m16n8k16 bf16 -> fp32 with K through
+// hd=128, 165 KB at hd=256). S = Q K^T runs on mma.sync m16n8k16 bf16 -> fp32 with K through
 // ldmatrix; the online softmax stays in registers (each row's max and sum
 // over the 4 threads of a quad by __shfl_xor_sync, no shared-memory score
 // tile, no barrier inside it); P is rounded to bf16 in registers and is the
@@ -312,7 +312,12 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
   const int row0 = warp * 16 + g;  // this thread's rows: row0 and row0 + 8
   const int qpos0 = pmin + row0;
   const int qpos1 = qpos0 + 8;
-  uint32_t qf[KS][4];
+  // Up to hd 128 the Q fragments stay in registers for the whole block. At
+  // hd 256 they would take 64 registers beside the 128 of the output
+  // accumulators, so each k-step reads its fragment again from the Q tile,
+  // which stays in shared memory anyway.
+  constexpr bool kQRegs = HD <= 128;
+  uint32_t qf[kQRegs ? KS : 1][4];
   float o[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -325,7 +330,7 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();
-    if (it == 0) {
+    if (kQRegs && it == 0) {
 #pragma unroll
       for (int kk = 0; kk < KS; ++kk)
         ldmatrix_x4(qf[kk], smem_u32(Qs + (warp * 16 + (lane & 15)) * RS + kk * 16 +
@@ -340,13 +345,21 @@ flash_fwd_bf16_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* 
     for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
+      uint32_t qa[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qa, smem_u32(Qs + (warp * 16 + (lane & 15)) * RS + kk * 16 +
+                                 (lane >> 4) * 8));
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t bf[4];
         ldmatrix_x4(bf, smem_u32(ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * RS +
                                  kk * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * np], qf[kk], bf[0], bf[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], bf[2], bf[3]);
+        mma_bf16(s[2 * np], qa, bf[0], bf[1]);
+        mma_bf16(s[2 * np + 1], qa, bf[2], bf[3]);
       }
     }
 
@@ -497,6 +510,7 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v, con
     FA_CASE(32)
     FA_CASE(64)
     FA_CASE(128)
+    FA_CASE(256)
 #undef FA_CASE
     default: return cudaErrorInvalidValue;
   }

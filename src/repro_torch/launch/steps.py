@@ -73,7 +73,9 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, shape: InputShape,
 def make_prefill_step(cfg: ArchConfig, shape: InputShape, *,
                       attn_impl: str = "torch"):
     """``prefill_step(params, batch) -> (last-position logits (B,1,V),
-    cache)``, the cache ``{"blocks": {"k","v": (L,B,S,K,hd)}}``."""
+    cache)``, the cache ``transformer.forward``'s: ``{"blocks": {"k","v":
+    (L,B,S,K,hd)}}`` for dense and MoE stacks, the final states for SSM and
+    hybrid ones."""
     window = effective_window(cfg, shape)
 
     @torch.no_grad()

@@ -1,10 +1,12 @@
 """Training launcher: argument parsing in front of the engine
 (``repro_torch.engine``), on the card by default.
 
-The JAX package's ``launch/train.py`` for the token LMs of the dense
-family (``--arch qwen2-7b``, the default, and the other dense configs;
-``--seq`` tokens a sequence from the ``SyntheticLM`` stream, ``lm_loss``,
-no merged-FC head) and for the paper's CNN archs (lenet, cifarnet,
+The JAX package's ``launch/train.py`` for the token LMs of the dense,
+MoE, SSM and hybrid families (``--arch qwen2-7b``, the default,
+``qwen2-moe-a2.7b``, ``mamba2-2.7b``, ``recurrentgemma-2b`` and the other
+configs of those families; ``--seq`` tokens a sequence from the
+``SyntheticLM`` stream, ``lm_loss`` with the MoE load-balance term, no
+merged-FC head) and for the paper's CNN archs (lenet, cifarnet,
 caffenet, with the merged-FC head), full size or ``--smoke``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain path and then needs
 ``--update-impl torch``, and for a CNN ``--conv-impl lowering`` or
@@ -12,9 +14,8 @@ caffenet, with the merged-FC head), full size or ``--smoke``, plus
 lowering_cuda|lowering|lowering_autodiff|torch`` (CNN archs; default: the
 config's, ``lowering_cuda``), ``--update-impl cuda|torch`` (default
 ``cuda``). As in the JAX launcher, ``encdec`` and ``vlm`` archs exit (their
-modality-stub variants are examples); the MoE, SSM and hybrid families
-raise ``NotImplementedError`` naming ROADMAP Queue A item 11, and
-``--replay-trace`` its item (13).
+modality-stub variants are examples); ``--replay-trace`` raises
+``NotImplementedError`` naming its ROADMAP Queue A item (13).
 
 Heterogeneous planning (``--cluster-spec ... --plan``, as in the JAX
 launcher) picks g, the device->group packing and throughput-proportional
@@ -37,6 +38,8 @@ the one asked for. Only rank 0 prints and writes files.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-7b \\
       --smoke --device cpu --update-impl torch --groups 2 --seq 32 \\
       --batch 8 --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch \\
+      recurrentgemma-2b --smoke --device cpu --update-impl torch
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch lenet --smoke --device cpu --conv-impl lowering \\
       --update-impl torch --groups 2 --batch 16 --exec-mode spmd --steps 3
@@ -87,7 +90,7 @@ def _build_workload(args, device):
     if cfg.arch_type in ("encdec", "vlm"):
         raise SystemExit("train.py drives token-LM and CNN archs; see "
                          "examples/ for the modality-stub variants")
-    M.require_dense(cfg)
+    M.require_ported(cfg)
     if args.conv_impl:
         raise ValueError(f"--conv-impl applies to CNN archs "
                          f"({', '.join(sorted(C.CNN_CONFIGS))}), not "
@@ -136,7 +139,7 @@ def main(argv=None):
     ap.add_argument("--arch",
                     choices=[*list_archs(), *sorted(C.CNN_CONFIGS)],
                     default="qwen2-7b",
-                    help="token LM (dense family) or CNN arch")
+                    help="token LM (dense, moe, ssm, hybrid) or CNN arch")
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-runnable)")
     ap.add_argument("--steps", type=int, default=50)

@@ -10,9 +10,12 @@ stays fp32, bf16 stays bf16). ``state_from_jax`` does the same for a
 Runner state ``(params, step_counter)`` (``core.workload.init_state``).
 
 ``to_compute_dtype`` casts every weight that the layers cast to the
-compute dtype at each use (projections, biases, MLP, embedding) once, so
-the per-use ``.to(cd)`` becomes a no-op with identical numbers. Norm scales
-are read in fp32 by ``rms_norm`` and keep their dtype.
+compute dtype at each use (projections, biases, MLP, experts, embedding)
+once, so the per-use ``.to(cd)`` becomes a no-op with identical numbers.
+Norm scales are read in fp32 by ``rms_norm`` and keep their dtype, and so
+do the ``FP32_LEAVES``: the MoE router, the SSD decay and skip terms and
+the RG-LRU decay rate, which the layers read in fp32 (the JAX package
+stores them in fp32 whatever the param dtype).
 """
 from __future__ import annotations
 
@@ -49,19 +52,27 @@ def state_from_jax(state, device="cpu"):
     return params_from_jax(params, None, device), int(step)
 
 
-def _is_norm(key: str) -> bool:
-    return key.startswith("ln")
+#: leaves the layers read in fp32, never cast: ``moe.router``,
+#: ``ssm.A_log`` / ``D`` / ``dt_bias`` and ``rglru.lambda_raw``
+FP32_LEAVES = ("router", "A_log", "D", "dt_bias", "lambda_raw")
+
+
+def _keeps_dtype(key: str) -> bool:
+    """Norm scales and the ``FP32_LEAVES`` keep their dtype under the
+    compute-dtype cast."""
+    return key.startswith("ln") or key in FP32_LEAVES
 
 
 def to_compute_dtype(params, cfg: ArchConfig, device=None):
     """Cast every weight used in the compute dtype, once (and move the tree
-    to ``device`` if given); norm scales keep their dtype. Returns a new
-    tree; leaves already in place are shared, not copied."""
+    to ``device`` if given); norm scales and the ``FP32_LEAVES`` keep their
+    dtype. Returns a new tree; leaves already in place are shared, not
+    copied."""
     cd = cfg.dtype("compute")
 
     def cast(tree):
         return {k: (cast(v) if isinstance(v, dict)
-                    else v.to(device=device) if _is_norm(k)
+                    else v.to(device=device) if _keeps_dtype(k)
                     else v.to(device=device, dtype=cd))
                 for k, v in tree.items()}
 

@@ -1,0 +1,150 @@
+"""Mixture-of-Experts layer: top-k router with capacity-based dispatch
+(Switch/GShard style), optional shared experts (Qwen-MoE), and the router
+load-balance auxiliary loss.
+
+Port of the JAX package's ``models/moe.py`` with its formulation kept:
+
+- dispatch is batch-local and sequence-chunked (a Python loop over chunks
+  of ``MOE_CHUNK`` tokens where JAX has a ``lax.scan``): the position of a
+  (token, choice) in its expert's buffer is a cumulative sum inside its
+  own batch row, so a row's output never depends on the other rows;
+- capacity is ``top_k * tokens * CAPACITY_FACTOR / num_experts``, capped
+  at ``MAX_CAPACITY``; choices past an expert's capacity are dropped;
+- every expert is computed densely on its ``(B, E, C, D)`` buffer, and the
+  combine weights each (token, choice) by its renormalised gate.
+
+The router is fp32 (``models.convert.FP32_LEAVES``) and the router
+softmax runs in fp32. ``jax.lax.top_k`` and ``torch.topk`` break ties in
+other orders; on fp32 probabilities of seeded inputs ties do not occur,
+and the parity tests rely on that.
+"""
+from __future__ import annotations
+
+import itertools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import layers as L
+
+CAPACITY_FACTOR = 1.25
+MOE_CHUNK = 4096
+MAX_CAPACITY = 1024
+
+
+def _randn_per_layer(shape, generator: torch.Generator, std: float,
+                     dtype: torch.dtype, lead: tuple) -> torch.Tensor:
+    """``layers._randn`` one leading index at a time, so the fp32 draw of a
+    stacked expert leaf (16.6 GB for one of qwen2-moe-a2.7b's) never
+    exists whole."""
+    out = torch.empty(lead + shape, dtype=dtype, device=generator.device)
+    for idx in itertools.product(*map(range, lead)):
+        out[idx] = L._randn(shape, generator, std, dtype)
+    return out
+
+
+def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
+             dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+    """The JAX tree: ``router`` (D, E) fp32, ``w_gate`` / ``w_up`` (E, D,
+    F), ``w_down`` (E, F, D), and ``shared`` when the config has shared
+    experts; ``lead`` prepends stacking axes."""
+    m = cfg.moe
+    d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
+    dt = dtype or cfg.dtype("param")
+    p = {"router": L._randn(lead + (d, e), generator, d ** -0.5,
+                            torch.float32),
+         "w_gate": _randn_per_layer((e, d, f), generator, d ** -0.5, dt,
+                                    lead),
+         "w_up": _randn_per_layer((e, d, f), generator, d ** -0.5, dt, lead),
+         "w_down": _randn_per_layer((e, f, d), generator, f ** -0.5, dt,
+                                    lead)}
+    if m.num_shared_experts > 0:
+        fs = m.num_shared_experts * f
+        p["shared"] = {
+            "w_gate": L._randn(lead + (d, fs), generator, d ** -0.5, dt),
+            "w_up": L._randn(lead + (d, fs), generator, d ** -0.5, dt),
+            "w_down": L._randn(lead + (fs, d), generator, fs ** -0.5, dt)}
+    return p
+
+
+def capacity(tokens_per_row: int, cfg: ArchConfig) -> int:
+    m = cfg.moe
+    c = int(m.top_k * tokens_per_row * CAPACITY_FACTOR / m.num_experts)
+    return max(1, min(c, MAX_CAPACITY))
+
+
+def _chunk_moe(p, xk, cfg: ArchConfig):
+    """One chunk. xk: (B, L, D) -> (y, (frac_tokens, mean_prob))."""
+    m = cfg.moe
+    cd = cfg.dtype("compute")
+    b, n, d = xk.shape
+    e, k = m.num_experts, m.top_k
+    cap = capacity(n, cfg)
+
+    logits = xk.float() @ p["router"].float()                 # (B,L,E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # (B,L,k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    onehot = F.one_hot(gate_idx, e).to(torch.int32)          # (B,L,k,E)
+    flat = onehot.reshape(b, n * k, e)
+    # position within each expert's buffer (the cumsum stays in the row)
+    pos = torch.cumsum(flat, dim=1) * flat - 1                # (B,Lk,E)
+    keep = (pos < cap) & (flat > 0)
+    # jax.nn.one_hot gives a zero row for pos = -1 and pos >= cap, where
+    # F.one_hot raises: compare with arange(cap) instead
+    slots = torch.arange(cap, device=xk.device)
+    pos_oh = ((pos[..., None] == slots) & keep[..., None]).to(cd)  # (B,Lk,E,C)
+    gates_flat = gate_vals.reshape(b, n * k).to(cd)
+    x_rep = torch.repeat_interleave(xk, k, dim=1)            # (B,Lk,D)
+
+    xin = torch.einsum("btec,btd->becd", pos_oh, x_rep)       # (B,E,C,D)
+    gate = F.silu(torch.einsum("becd,edf->becf", xin, p["w_gate"].to(cd)))
+    up = torch.einsum("becd,edf->becf", xin, p["w_up"].to(cd))
+    out = torch.einsum("becf,efd->becd", gate * up, p["w_down"].to(cd))
+    # combine back: weight each (token, choice) by its gate
+    y = torch.einsum("btec,bt,becd->btd", pos_oh, gates_flat, out)
+    y = y.reshape(b, n, k, d).sum(dim=2)
+
+    # GShard load-balance stats (summed over chunks by the caller)
+    frac_tokens = onehot.sum(dim=2).float().mean(dim=(0, 1))
+    mean_prob = probs.mean(dim=(0, 1))
+    return y, (frac_tokens, mean_prob)
+
+
+def moe_forward(p, x, cfg: ArchConfig, chunk: int = MOE_CHUNK):
+    """x: (B, S, D). Returns (y, aux_loss). The sequence is cut into
+    chunks of ``chunk`` tokens when it is a multiple of ``chunk`` longer
+    than one chunk; the load-balance stats are then averaged over the
+    chunks before their product."""
+    m = cfg.moe
+    cd = cfg.dtype("compute")
+    b, s, d = x.shape
+    n = min(chunk, s)
+    e = m.num_experts
+
+    if s % n or s == n:
+        y, (ft, mp) = _chunk_moe(p, x, cfg)
+        aux = e * torch.sum(ft * mp)
+    else:
+        nc = s // n
+        ft = torch.zeros((e,), dtype=torch.float32, device=x.device)
+        mp = torch.zeros((e,), dtype=torch.float32, device=x.device)
+        ys = []
+        for c in range(nc):
+            yc, (fc, mc) = _chunk_moe(p, x[:, c * n:(c + 1) * n], cfg)
+            ft, mp = ft + fc, mp + mc
+            ys.append(yc)
+        y = torch.cat(ys, dim=1)
+        aux = e * torch.sum((ft / nc) * (mp / nc))
+
+    if "shared" in p:
+        sp = p["shared"]
+        xt = x.reshape(b * s, d)
+        h = F.silu(xt @ sp["w_gate"].to(cd)) * (xt @ sp["w_up"].to(cd))
+        y = y + (h @ sp["w_down"].to(cd)).reshape(b, s, d)
+
+    return y, aux * m.router_aux_weight

@@ -1,8 +1,9 @@
 """Paged decode: ``models.layers.attention_decode`` generalized to a
 per-request position vector over a page-table-indirected cache.
 
-Port of the JAX package's ``serving/decode.py`` (dense stacks; MoE raises
-until ``models/moe.py`` is ported).
+Port of the JAX package's ``serving/decode.py``: dense and MoE stacks
+(the attention-free and hybrid families keep a recurrent state, not a KV
+cache, and raise ``ValueError`` as the JAX function does).
 
 Bitwise contract (pinned in ``tests/test_torch_serving.py``): gathering a
 slot's pages yields exactly the dense ``(B, W, K, hd)`` ring buffer, the
@@ -49,9 +50,21 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import valid_mask
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import require_dense, unstack
+from repro_torch.models import moe as M
+from repro_torch.models.transformer import require_ported, unstack
 
-__all__ = ["ATTN_IMPLS", "paged_attention_decode", "paged_decode_step"]
+__all__ = ["ATTN_IMPLS", "PAGED_FAMILIES", "check_paged_family",
+           "paged_attention_decode", "paged_decode_step"]
+
+#: the arch families whose decode state is a KV cache that pages
+PAGED_FAMILIES = ("dense", "moe")
+
+
+def check_paged_family(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` for a family paged decode does not serve."""
+    if cfg.arch_type not in PAGED_FAMILIES:
+        raise ValueError(f"paged decode supports dense/moe, not "
+                         f"{cfg.arch_type!r}")
 
 
 def _write(pool, pid, in_page, new, act) -> None:
@@ -125,7 +138,7 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
                       cfg: ArchConfig, *, window: Optional[int] = None,
                       attn_impl: str = "torch",
                       gather_pages: Optional[int] = None):
-    """One continuous-batching decode step for dense stacks.
+    """One continuous-batching decode step for dense and MoE stacks.
 
     pages: {"k","v"}: (L, P, page, K, hd), updated in place; table: (B,
     max_pages) int32 shared by all layers; tokens: (B,1) int; pos: (B,)
@@ -136,7 +149,8 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
     if window is None:
         window = cfg.sliding_window
     check_attn_impl(attn_impl, tokens.device)
-    require_dense(cfg)
+    check_paged_family(cfg)
+    require_ported(cfg)
     x = L.embed(params["embed"], tokens, cfg)
     for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
         a, _ = paged_attention_decode(
@@ -145,7 +159,10 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
             window=window, attn_impl=attn_impl, gather_pages=gather_pages)
         x = x + a
         h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-        x = x + L.mlp_forward(bp["mlp"], h2, cfg)
+        if cfg.arch_type == "dense":
+            x = x + L.mlp_forward(bp["mlp"], h2, cfg)
+        else:
+            x = x + M.moe_forward(bp["moe"], h2, cfg)[0]
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, pages

@@ -59,7 +59,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import to_compute_dtype
 from repro_torch.obs import spans
 from repro_torch.obs.metrics import MetricRegistry
-from repro_torch.serving.decode import paged_decode_step
+from repro_torch.serving.decode import check_paged_family, paged_decode_step
 from repro_torch.serving.paged_cache import (PagedCacheSpec, PageAllocator,
                                              init_pages)
 
@@ -191,7 +191,8 @@ class ContinuousServer:
         check_attn_impl(attn_impl, self.device)
         if gather_mode not in ("bucket", "full"):
             raise ValueError(f"unknown gather_mode {gather_mode!r}")
-        T.require_dense(cfg)
+        check_paged_family(cfg)
+        T.require_ported(cfg)
         self.cfg = cfg
         self.window = window
         self.attn_impl = attn_impl
@@ -533,7 +534,7 @@ def static_serve_trace(cfg: ArchConfig, requests: Sequence[Request], *,
     latency is the batch's end. The baseline the continuous server's
     goodput is compared against."""
     dev = resolve(device)
-    T.require_dense(cfg)
+    T.require_ported(cfg)
     if window == "config":
         window = cfg.sliding_window
     if params is None:

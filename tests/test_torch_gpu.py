@@ -23,6 +23,11 @@ give the same bits on a second call. The optimizer path's shapes: the conv
 kernels at CaffeNet's planned per-group batch (93, the largest share of
 the ``2xgpu-g2.2xlarge,2xcpu-c4.4xlarge`` plan at batch 256) and at
 ``cnn_classify``'s 12x12x1 image; ``profile_device`` times finished work.
+The MoE and hybrid families' attention shapes: the flash kernel at head
+dim 256 with 10 query heads on one kv head (recurrentgemma-2b's local
+attention, window 2048, keys past it) and both kernels at G = 1
+(qwen2-moe-a2.7b); ``moe_forward`` and the MoE ``paged_decode_step`` on
+the card within 1e-4 of the CPU (fp32).
 """
 import dataclasses
 import warnings
@@ -461,3 +466,98 @@ def test_profile_device_synchronizes(card):
     thr = profile_device(lambda: torch.cuda._sleep(cycles), (),
                          batch_size=1, warmup=1, iters=3, device=card)
     assert 1.0 / thr >= 0.8 * sleep_s, (1.0 / thr, sleep_s)
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid families' shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_kernel_hd256_gqa10_window(card, dtype, tol):
+    """recurrentgemma-2b's local attention: 10 query heads on one kv head
+    of 256, window 2048, keys past the window."""
+    g = torch.Generator(device=card).manual_seed(7)
+    q = torch.randn(2, 2300, 10, 256, generator=g, device=card).to(dtype)
+    k = torch.randn(2, 2300, 1, 256, generator=g, device=card).to(dtype)
+    v = torch.randn(2, 2300, 1, 256, generator=g, device=card).to(dtype)
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=2048).float()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=True, window=2048).float()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_flash_kernel_group_of_one(card, dtype, tol):
+    """qwen2-moe-a2.7b: 16 query heads on 16 kv heads (G = 1)."""
+    g = torch.Generator(device=card).manual_seed(8)
+    q = torch.randn(2, 300, 16, 128, generator=g, device=card).to(dtype)
+    k = torch.randn(2, 300, 16, 128, generator=g, device=card).to(dtype)
+    v = torch.randn(2, 300, 16, 128, generator=g, device=card).to(dtype)
+    got = fa_ops.flash_attention(q, k, v, causal=True).float()
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_paged_kernel_group_of_one(card, dtype, tol):
+    """G = 1: one live row of the split kernel's 16 mma rows."""
+    args = _paged(card, dtype, B=4, K=16, G=1, n_pages=16,
+                  pos=(5, 0, 255, 130))
+    got = pa_ops.paged_attention(*args)
+    want = paged_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    assert torch.equal(pa_ops.paged_attention(*args), got)
+
+
+def _moe_cfg():
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("qwen2-moe-a2.7b"),
+                               compute_dtype="float32", remat=False)
+
+
+def test_moe_forward_on_the_card_matches_the_cpu(card):
+    from repro_torch.models import moe as M
+    cfg = _moe_cfg()
+    p = M.init_moe(cfg, torch.Generator().manual_seed(0))
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(1))
+    want_y, want_aux = M.moe_forward(p, x, cfg)
+    got_y, got_aux = M.moe_forward(T.tree_map(lambda t: t.to(card), p),
+                                   x.to(card), cfg)
+    torch.testing.assert_close(got_y.cpu(), want_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_aux.cpu(), want_aux, atol=1e-6,
+                               rtol=1e-5)
+
+
+def test_moe_paged_decode_step_on_the_card_matches_the_cpu(card):
+    """The MoE arm of ``paged_decode_step`` through the paged kernel on the
+    card against the plain arm on the CPU, fp32, 6 steps."""
+    from repro_torch.models import transformer as M
+    from repro_torch.serving import (PageAllocator, PagedCacheSpec,
+                                     init_pages, paged_decode_step)
+    cfg = _moe_cfg()
+    params = M.init_params(torch.Generator().manual_seed(0), cfg)
+    dparams = T.tree_map(lambda t: t.to(card), params)
+    spec = PagedCacheSpec.for_config(cfg, num_slots=2, page_size=4,
+                                     max_seq=16)
+    alloc = PageAllocator(spec)
+    for s in range(2):
+        alloc.ensure(s, spec.seq_capacity)
+    table = torch.tensor(alloc.tables)
+    pages = {"cpu": init_pages(spec), "cuda": init_pages(spec, card)}
+    active = torch.tensor([True, True])
+    rng = np.random.default_rng(2)
+    for t in range(6):
+        tok = torch.tensor(rng.integers(cfg.vocab_size, size=(2, 1)))
+        pos = torch.tensor([t, t + 3], dtype=torch.int32)
+        want, pages["cpu"] = paged_decode_step(
+            params, pages["cpu"], table, tok, pos, active, cfg)
+        before = pa_ops.paged_attention.launches
+        got, pages["cuda"] = paged_decode_step(
+            dparams, pages["cuda"], table.to(card), tok.to(card),
+            pos.to(card), active.to(card), cfg, attn_impl="cuda")
+        assert pa_ops.paged_attention.launches == before + cfg.num_layers
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)

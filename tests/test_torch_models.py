@@ -20,6 +20,7 @@ from repro.models import layers as JL
 from repro.models import transformer as JT
 from repro_torch.configs import get_smoke_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.tree import leaves_with_path
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import params_from_jax, to_compute_dtype
@@ -210,9 +211,20 @@ def test_init_params_shapes_and_weight_dtype():
                                   "recurrentgemma-2b", "whisper-base",
                                   "llama-3.2-vision-90b"])
 def test_unported_families_raise_naming_roadmap(arch):
+    """The vlm and encdec families raise naming ROADMAP item 11; the
+    moe, ssm and hybrid families give the JAX tree's keys and shapes."""
     cfg = get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.init_params(torch.Generator().manual_seed(0), cfg)
+    gen = torch.Generator().manual_seed(0)
+    if cfg.arch_type in T.UNPORTED:
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
+            T.init_params(gen, cfg)
+        return
+    want = jax.eval_shape(lambda k: JT.init_params(k, j_get_smoke_config(
+        arch)), jax.random.PRNGKey(0))
+    got = T.init_params(gen, cfg)
+    wl = jax.tree_util.tree_flatten_with_path(want)[0]
+    gl = [(p, tuple(t.shape)) for p, t in leaves_with_path(got)]
+    assert [(tuple(k.key for k in p), tuple(w.shape)) for p, w in wl] == gl
 
 
 def test_cuda_attention_on_cpu_raises():

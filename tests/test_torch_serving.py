@@ -399,6 +399,6 @@ def test_server_rejects_bad_options():
         with pytest.raises(ValueError, match=match):
             ContinuousServer(cfg, slots=2, page_size=4, max_seq=16,
                              device="cpu", **kw)
-    _, moe = _cfg(arch_type="moe")
-    with pytest.raises(NotImplementedError, match="moe"):
-        ContinuousServer(moe, slots=2, page_size=4, max_seq=16, device="cpu")
+    _, ssm = _cfg(arch_type="ssm")
+    with pytest.raises(ValueError, match="dense/moe"):
+        ContinuousServer(ssm, slots=2, page_size=4, max_seq=16, device="cpu")

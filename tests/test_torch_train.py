@@ -213,7 +213,7 @@ def test_launcher_trains_smoke_lenet_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--arch", "qwen2-moe-a2.7b"], "item 11"),
+    (["--arch", "qwen2-moe-a2.7b"], "applies to CNN archs"),
     (["--replay-trace", "t.npz"], "item 13"),
     (["--exec-mode", "spmd"], "initialized process group"),
     (["--mp", "2"], "needs >= 2 ranks"),
