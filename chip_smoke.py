@@ -147,7 +147,40 @@ passed over, nothing falls back to the CPU):
    warm-up + 3 rounds), mamba2-2.7b at 2 of 64 and recurrentgemma-2b at 3
    of 26 (1 + 2 each; the cuts are the runs' ``reduced`` lists), B1 once
    a leaf a round, every loss finite, peak memory beside (4 + g)·P·4 B;
-   on the MoE round's own gradient stacks B1 bitwise its plain version.
+   on the MoE round's own gradient stacks B1 bitwise its plain version;
+15. the vlm and encdec families: (a) whisper-base at full width and depth
+   (6 + 6 layers, d_model 512, 8 heads of 64, vocab 51,865; fp32 params
+   from seed 0, bf16 compute): ``make_prefill_step`` over 8 x 1500 stub
+   audio frames (``steps.modality_inputs``, seed 0) and a 4-token prompt
+   through the flash kernel (the encoder non-causal over the ragged 1500
+   frames, 6 launches; the decoder causal, 6) and through the plain arm,
+   each held to the fp32 prefill (the kernel arm finite and within 1.5x
+   the plain arm's relative RMS error), the fp32 arms within ``1e-4`` on
+   the logits and every cache leaf, then the cross K/V copied from that
+   forward's cache into ``init_cache`` and 60 tokens generated (every
+   step's logits finite) and a profiled decode step, then
+   ``launch/serve.serve`` with zero cross caches, as the reference
+   serves; (b) llama-3.2-vision-90b at full
+   published width (d_model 8192, 64 query heads on 8 kv heads of 128,
+   d_ff 28,672, vocab 128,256, a cross block every 5th layer) and 40 of
+   its 100 layers (the run's ``reduced`` list; bf16 weights from seed 0,
+   drawn a layer at a time): the prefill step at 4 x 512 text tokens +
+   1024 stub image tokens a row through both arms as in (a) (B5 causal
+   at G = 8, 32 launches), its peak memory, then a batch of 4 served,
+   prompt 32 + 32 generated, with the image K/V copied from the forward's
+   ``super.ck`` / ``cv`` into ``init_cache``'s tree, and a profiled
+   decode step; the fp32 arms within ``1e-4`` at one super-block (5
+   layers);
+16. trace replay at full CaffeNet width, group batch 64:
+   ``Engine(strategy="trace-replay")`` along a 32-commit ``queue_sim``
+   trace (g = 4, exponential service) with ``scan``, and along
+   ``EventTrace.round_robin(4, 32, "grouped")`` with ``fused`` and with
+   ``scan`` (the two within ``1e-4`` on the losses and final params): ms
+   a commit, the ring depth R, peak memory; launch counts zeroed before
+   and checked after each run (per commit: lowering_conv 5, wgrad 5,
+   dgrad 4, no fused update), every loss finite; then the ``queue_sim``
+   replay profiled (``Engine.replay`` on the batches already on the
+   card).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -180,6 +213,8 @@ PAGED = dict(B=8, K=4, G=7, hd=128, page=16, n_pages=64)   # qwen2-7b serving
 FLASH = dict(B=8, H=28, K=4, hd=128)
 RG_FLASH = (2, 10, 1, 256)     # recurrentgemma-2b prefill: (B, H, K, hd)
 RG_WINDOW = 2048
+WHISPER_FLASH = (8, 8, 8, 64)  # whisper-base, 8 x 30 s audio: (B, H, K, hd)
+VISION_FLASH = (4, 64, 8, 128)  # llama-3.2-vision-90b prefill, 4 x 512
 SPIN_CYCLES = 20_000_000       # ~10 ms at the H100's clock: covers any enqueue
 
 CNN_GROUP_BATCH = 64           # CaffeNet batch 256 over g = 4 groups
@@ -416,7 +451,15 @@ def phase_check(torch) -> dict:
                 ("hd256 G=10 window 2048 ragged 2100", RG_FLASH, 2100,
                  2100, {"window": 2048}),
                 ("hd256 G=10 q_offsets chunk 100x3000", RG_FLASH, 100, 3000,
-                 {"window": 2048, "q_offsets": (0, 2900)})):
+                 {"window": 2048, "q_offsets": (0, 2900)}),
+                # whisper-base's encoder: non-causal over 1500 frames (off
+                # both tiles), hd 64, G = 1; its decoder's causal prompt
+                ("hd64 G=1 non-causal ragged 1500", WHISPER_FLASH, 1500,
+                 1500, {"causal": False}),
+                ("hd64 G=1 causal 4", WHISPER_FLASH, 4, 4, {}),
+                # llama-3.2-vision-90b's self blocks: 64 query heads on 8
+                # kv heads of 128
+                ("hd128 G=8 H=64 causal 512", VISION_FLASH, 512, 512, {})):
             if "q_offsets" in kw:
                 lo, hi = kw["q_offsets"]
                 kw = dict(kw, q_offsets=torch.randint(
@@ -555,6 +598,34 @@ def phase_time(torch) -> dict:
         f"band as a boolean mask) bound_ms={b_ms:.5f} ({b_by}) "
         f"achieved={flops / ms / 1e9:.1f} TFLOP/s")
     del q, k, v, qh, kh, vh, band
+
+    # the vlm and encdec prefills: whisper-base's encoder (non-causal over
+    # 1500 frames) and llama-3.2-vision-90b's self blocks (causal, G = 8)
+    for label, (B, H, K, hd), S, causal in (
+            ("non-causal", WHISPER_FLASH, 1500, False),
+            ("causal", VISION_FLASH, 512, True)):
+        q = torch.randn(B, S, H, hd, generator=g, device="cuda").bfloat16()
+        k = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+        v = torch.randn(B, S, K, hd, generator=g, device="cuda").bfloat16()
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        nbytes = 2 * (2 * q.numel() + 2 * k.numel())
+        flops = 4 * B * H * hd * pairs
+        ms = cuda_ms(torch, lambda: fa.flash_attention(q, k, v,
+                                                       causal=causal),
+                     iters=20, flush=flush)
+        plain = cuda_ms(torch, lambda: flash_attention_ref(q, k, v,
+                                                           causal=causal),
+                        iters=5, flush=flush)
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=True), iters=20,
+            flush=flush)
+        b_ms, b_by = bound(nbytes, flops)
+        log(f"[time] flash_attention bf16 {label} B={B} H={H} K={K} hd={hd} "
+            f"Sq=Sk={S}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+            f"library_ms={lib:.4f} (SDPA enable_gqa) bound_ms={b_ms:.5f} "
+            f"({b_by}) achieved={flops / ms / 1e9:.1f} TFLOP/s")
+        del q, k, v, qh, kh, vh
     del flush
     torch.cuda.empty_cache()
     return out
@@ -620,6 +691,39 @@ def log_port_kernels(kernels, names) -> None:
                 f"{name[:100]}")
 
 
+def _profile_fn(torch, fn, what: str, names, reps: int = 3) -> None:
+    """``fn()`` (ending in a host read) ``reps`` times: wall a call on the
+    host clock (no profiler), device busy time (the sum of kernel times
+    under ``torch.profiler``), the device's idle share and the kernels
+    that take the time (the port's ``names`` whether or not among them)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()                                                    # warm
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+    kernels = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        kernels.append((us / reps / 1e3, e.count / reps, e.key))
+    busy = sum(k[0] for k in kernels)
+    kernels.sort(reverse=True)
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms (host clock, no "
+        f"profiler), device busy {busy:.2f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f}, {sum(k[1] for k in kernels):.0f} "
+        "kernels a call")
+    for ms, n, name in kernels[:8]:
+        log(f"[profile]   {ms:8.3f} ms  x{n:<6.0f} {name[:80]}")
+    log_port_kernels(kernels, names)
+
+
 def phase_profile(torch, srv, steps: int = 5,
                   what: str = "full-width decode step") -> None:
     """Full-width decode steps (8 active slots at ~200-token contexts):
@@ -627,7 +731,6 @@ def phase_profile(torch, srv, steps: int = 5,
     per step (the sum of kernel times under ``torch.profiler``), the
     device's idle share, and the kernels that take the device time."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     S = srv.spec.num_slots
     for s in range(S):
         srv.alloc.ensure(s, 256)
@@ -640,32 +743,8 @@ def phase_profile(torch, srv, steps: int = 5,
     def step():
         return srv._step(table, tok, pos, act, None).cpu()
 
-    step()                                                # warm
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        step()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step()
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue                  # operator rows repeat their kernels
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kernels.append((us / steps / 1e3, e.count / steps, e.key))
-    busy = sum(k[0] for k in kernels)
-    kernels.sort(reverse=True)
-    log(f"[profile] {what}, 8 active slots: wall "
-        f"{wall_ms:.2f} ms (host clock, no profiler), device busy "
-        f"{busy:.2f} ms, idle share {1 - busy / wall_ms:.3f}, "
-        f"{sum(k[1] for k in kernels):.0f} kernels a step")
-    for ms, n, name in kernels[:8]:
-        log(f"[profile]   {ms:7.3f} ms  x{n:<6.0f} {name[:80]}")
-    log_port_kernels(kernels, ("paged_split", "paged_combine",
-                               "flash_fwd"))
+    _profile_fn(torch, step, f"{what}, 8 active slots",
+                ("paged_split", "paged_combine", "flash_fwd"), reps=steps)
     for s in range(S):
         srv.alloc.release(s)
 
@@ -1157,29 +1236,8 @@ def phase_train_profile(torch, engine, params, mom, batch, what: str,
     (the sum of kernel times under ``torch.profiler``), the device's idle
     share, and the kernels that take the time (the port's ``names``
     whether or not they are among them)."""
-    from torch.profiler import ProfilerActivity, profile
-    engine.step(params, mom, batch)                        # warm
-    t0 = time.perf_counter()
-    engine.step(params, mom, batch)
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        engine.step(params, mom, batch)
-    kernels = []
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-        kernels.append((us / 1e3, e.count, e.key))
-    busy = sum(k[0] for k in kernels)
-    kernels.sort(reverse=True)
-    log(f"[profile] {what}, g={engine.num_groups}: wall {wall_ms:.2f} ms "
-        f"(host clock, no profiler), device busy {busy:.2f} ms, idle share "
-        f"{1 - busy / wall_ms:.3f}, {sum(k[1] for k in kernels)} kernels")
-    for ms, n, name in kernels[:10]:
-        log(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:80]}")
-    log_port_kernels(kernels, names)
+    _profile_fn(torch, lambda: engine.step(params, mom, batch),
+                f"{what}, g={engine.num_groups}", names, reps=1)
 
 
 def phase_train(torch):
@@ -2292,6 +2350,374 @@ def phase_families(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the vlm and encdec families
+# ---------------------------------------------------------------------------
+
+WHISPER_SERVE = dict(batch=8, prompt_len=4, gen=60)
+VISION_LAYERS = 40             # of 100: the run's ``reduced`` list
+VISION_PREFILL = (4, 512)      # batch x text tokens, + 1024 image tokens
+VISION_SERVE = dict(batch=4, prompt_len=32, gen=32)
+VISION_PARITY_LAYERS = 5       # one super-block: 4 self blocks + 1 cross
+
+
+def _rel(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def _prefill_arms(torch, cfg, params, batch, tag: str, want_flash: int):
+    """``make_prefill_step`` through the plain arm and the flash kernel in
+    bf16, each held to the fp32 prefill of the same weights: the kernel
+    arm's last-position logits finite and no further from it than 1.5x
+    the plain arm's (the port's bf16 contract). The kernel arm's flash
+    launches are counted. Returns (its (logits, cache), launches)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import steps as S
+    b, s = batch["tokens"].shape
+    shape = InputShape("prefill", s, b, "prefill")
+    truth = S.make_prefill_step(dataclasses.replace(
+        cfg, compute_dtype="float32"), shape)(params, batch)[0].float()
+    plain = S.make_prefill_step(cfg, shape)(params, batch)[0]
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    out = S.make_prefill_step(cfg, shape, attn_impl="cuda")(params, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    flash = fa.flash_attention.launches
+    if flash != want_flash:
+        fail(f"{cfg.name} prefill step: {flash} flash launches, want "
+             f"{want_flash}")
+    err = {"cuda": _rel(out[0], truth), "torch": _rel(plain, truth)}
+    if not torch.isfinite(out[0]).all() or out[0].shape != (
+            b, 1, cfg.vocab_size) or err["cuda"] > 1.5 * err["torch"]:
+        fail(f"{cfg.name} prefill step bf16 last-position logits "
+             f"{tuple(out[0].shape)}: relative RMS error against fp32 "
+             f"{err['cuda']:.3e} (cuda) vs {err['torch']:.3e} (torch); the "
+             "cuda arm must be finite and within 1.5x the torch arm's")
+    log(f"[{tag}] {cfg.name} {cfg.num_layers} layers, make_prefill_step "
+        f"batch {b} x {s}: {ms:.1f} ms (host clock, the kernel arm), "
+        f"last-position logits rel_rms against the fp32 prefill cuda="
+        f"{err['cuda']:.3e} torch={err['torch']:.3e} (cuda <= 1.5 x "
+        f"torch); {flash} flash launches ok")
+    return out, flash
+
+
+def _prefill_parity_fp32(torch, cfg, params, batch, tag: str) -> None:
+    """fp32: ``make_prefill_step``'s kernel arm within 1e-4 of the plain
+    arm on the logits and on every cache leaf (the self and cross K/V)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as S
+    cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    b, s = batch["tokens"].shape
+    shape = InputShape("prefill", s, b, "prefill")
+    out = {impl: list(S.make_prefill_step(cfg, shape, attn_impl=impl)(
+        params, batch)) for impl in ("torch", "cuda")}
+    worst = max(_close(torch, f"{cfg.name} prefill {path}", a, w)
+                for (path, a), w in zip(T.leaves_with_path(out["cuda"]),
+                                        T.leaves(out["torch"])))
+    log(f"[{tag}] {cfg.name} widths, {cfg.num_layers} layers, fp32, "
+        f"make_prefill_step batch {b} x {s}: cuda vs torch logits and "
+        f"{len(T.leaves(out['cuda'])) - 1} cache leaves max_abs_err="
+        f"{worst:.3e} (tol 1e-4) ok")
+
+
+def _serve_filled(torch, cfg, params, cache, prompts, gen: int, tag: str):
+    """``transformer.prefill`` over ``prompts`` then ``gen - 1`` decode
+    steps on ``cache`` (its cross K/V filled by the caller): every step's
+    logits finite, the tokens in the vocabulary. Returns (prefill s,
+    decode s a step)."""
+    from repro_torch.models import transformer as M
+    b, p = prompts.shape
+    flag, restore = _finite_decode(torch)
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = M.prefill(params, cache, prompts, cfg)
+            tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            torch.cuda.synchronize()
+            t_pre = time.perf_counter() - t0
+            outs = [tok]
+            t0 = time.perf_counter()
+            for pos in range(p, p + gen - 1):
+                logits, cache = M.decode_step(params, cache, tok, pos, cfg)
+                tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+                outs.append(tok)
+            torch.cuda.synchronize()
+            t_dec = (time.perf_counter() - t0) / max(gen - 1, 1)
+    finally:
+        restore()
+    toks = torch.cat(outs, dim=1)
+    if not bool(flag["ok"]) or flag["n"] != p + gen - 1 or toks.shape != (
+            b, gen) or not ((toks >= 0) & (toks < cfg.vocab_size)).all():
+        fail(f"{cfg.name} served with filled cross caches: logits finite "
+             f"{bool(flag['ok'])} over {flag['n']} steps (want "
+             f"{p + gen - 1}), tokens {tuple(toks.shape)}")
+    log(f"[{tag}] {cfg.name} served batch {b} x prompt {p} + {gen} "
+        f"generated, cross K/V filled from the forward: prefill "
+        f"{b * p / t_pre:.1f} tok/s ({t_pre:.3f} s, a decode-step loop), "
+        f"decode {b / t_dec:.1f} tok/s ({t_dec * 1e3:.2f} ms a step), every "
+        "step's logits finite")
+    return t_pre, t_dec
+
+
+def _profile_decode(torch, cfg, params, cache, b: int, pos: int,
+                    tag: str) -> None:
+    """One ``decode_step`` of a batch of ``b`` on its filled ``cache`` at
+    ``pos``, profiled (each call rewrites the same cache slot)."""
+    from repro_torch.models import transformer as M
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=torch.device("cuda"))
+    with torch.no_grad():
+        _profile_fn(torch, lambda: M.decode_step(params, cache, tok, pos,
+                                                 cfg)[0].cpu(),
+                    f"{cfg.name} decode step, batch {b} at position {pos} "
+                    f"({tag})", ("flash_fwd",))
+
+
+def phase_whisper(torch) -> dict:
+    """(a) whisper-base at full width and depth (6 + 6 layers, d_model 512,
+    8 heads of 64; fp32 params from seed 0, bf16 compute): the prefill
+    step over 8 x 1500 stub audio frames and a 4-token prompt through both
+    arms (the encoder's B5 non-causal over 1500 frames, the decoder's
+    causal), the fp32 arms' parity, the cross K/V filled from that
+    forward's cache and 60 tokens generated, a decode step profiled, then
+    ``launch/serve.serve`` as the reference runs it (zero cross
+    caches)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.launch import serve as SV
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    cfg = get_config("whisper-base")
+    b, p, n = (WHISPER_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in T.leaves(params))
+    log(f"[vlm:a] {cfg.name} {cfg.encoder_layers} + {cfg.num_layers} layers "
+        f"d_model {cfg.d_model} heads {cfg.num_heads} of "
+        f"{cfg.resolved_head_dim} vocab {cfg.vocab_size}: {n_params} params "
+        f"({_tree_bytes(params) / 1e6:.1f} MB {cfg.param_dtype}), "
+        f"{cfg.encoder_seq} frames a row")
+    g = torch.Generator(device=dev).manual_seed(1)
+    batch = {"tokens": torch.randint(cfg.vocab_size, (b, p), generator=g,
+                                     device=dev)}
+    batch.update(S.modality_inputs(cfg, (b,), seed=0, device=dev))
+    (_, fwd), flash = _prefill_arms(
+        torch, cfg, params, batch, "vlm:a",
+        want_flash=cfg.encoder_layers + cfg.num_layers)
+    _prefill_parity_fp32(torch, cfg, params, batch, "vlm:a")
+    cache = M.init_cache(cfg, b, p + n, device=dev)
+    for k in ("ck", "cv"):
+        cache["blocks"][k].copy_(fwd["blocks"][k])
+    del fwd
+    _serve_filled(torch, cfg, params, cache, batch["tokens"], n, "vlm:a")
+    _profile_decode(torch, cfg, params, cache, b, p + n - 1,
+                    "cross K/V filled")
+    del cache, params
+    _free(torch)
+    toks, t_pre, t_dec = SV.serve(cfg, batch=b, prompt_len=p, gen=n,
+                                  device=dev)
+    if toks.shape != (b, n) or not ((toks >= 0)
+                                    & (toks < cfg.vocab_size)).all():
+        fail(f"whisper-base serve: tokens {toks}")
+    log(f"[vlm:a] launch/serve.serve (zero cross caches, as the reference): "
+        f"prefill {b * p / t_pre:.1f} tok/s, decode "
+        f"{b * (n - 1) / t_dec:.1f} tok/s ({t_dec / (n - 1) * 1e3:.2f} ms a "
+        f"step); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        "GB")
+    _free(torch)
+    return {"flash": flash}
+
+
+def phase_vision(torch) -> dict:
+    """(b) llama-3.2-vision-90b at full published width and
+    ``VISION_LAYERS`` of its 100 layers (bf16 weights from seed 0, drawn a
+    layer at a time): the prefill step at 4 x 512 text tokens + 1024 stub
+    image tokens a row through both arms (B5 causal, 64 query heads on 8
+    kv heads of 128), then a batch of 4 served, prompt 32 + 32 generated,
+    the image K/V copied from the forward's cache into ``init_cache``'s
+    tree, and a decode step profiled; then the fp32 arms' parity at one
+    super-block."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree as T
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("llama-3.2-vision-90b"),
+                              num_layers=VISION_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in T.leaves(params))
+    per = cfg.cross_attn_every
+    n_cross = cfg.num_layers // per
+    log(f"[vlm:b] {cfg.name} {cfg.num_layers} layers ({n_cross} x "
+        f"({per - 1} self + 1 cross) + {cfg.num_layers % per} self) d_model "
+        f"{cfg.d_model} heads {cfg.num_heads}/{cfg.num_kv_heads} of "
+        f"{cfg.resolved_head_dim} d_ff {cfg.d_ff} vocab {cfg.vocab_size}: "
+        f"{n_params} params, {_tree_bytes(params) / 1e9:.2f} GB "
+        f"{cfg.param_dtype}, made in {time.perf_counter() - t0:.1f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    b, s = VISION_PREFILL
+    g = torch.Generator(device=dev).manual_seed(2)
+    batch = {"tokens": torch.randint(cfg.vocab_size, (b, s), generator=g,
+                                     device=dev)}
+    batch.update(S.modality_inputs(cfg, (b,), seed=0, device=dev))
+    n_self = cfg.num_layers - n_cross
+    (_, fwd), flash = _prefill_arms(torch, cfg, params, batch, "vlm:b",
+                                    want_flash=n_self)
+    log(f"[vlm:b] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        "GB after the prefill steps")
+    bs, p, n = (VISION_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    cache = M.init_cache(cfg, bs, p + n, device=dev)
+    for k in ("ck", "cv"):                  # the forward's "super" ck / cv
+        cache["super"][k].copy_(fwd["super"][k][:, :bs])
+    del fwd
+    _free(torch)
+    _serve_filled(torch, cfg, params, cache, batch["tokens"][:bs, :p], n,
+                  "vlm:b")
+    _profile_decode(torch, cfg, params, cache, bs, p + n - 1,
+                    "image K/V filled")
+    log(f"[vlm:b] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+        "GB")
+    del cache, params
+    _free(torch)
+    small = dataclasses.replace(cfg, num_layers=VISION_PARITY_LAYERS)
+    params = M.init_params(torch.Generator(device=dev).manual_seed(3), small)
+    _prefill_parity_fp32(torch, small, params,
+                         {k: v[:2, :256] if k == "tokens" else v[:2]
+                          for k, v in batch.items()}, "vlm:b")
+    del params
+    _free(torch)
+    return {"flash": flash}
+
+
+# ---------------------------------------------------------------------------
+# trace replay
+# ---------------------------------------------------------------------------
+
+REPLAY_COMMITS = 32            # commits replayed, one group batch each
+REPLAY_G = 4
+
+
+def _replay_run(torch, engine, params, batches, label: str):
+    """``Engine.run`` under ``trace-replay`` over the host ``batches``,
+    with the training kernels' launch counts zeroed before it and checked
+    after it (per commit: lowering conv 5, wgrad 5, dgrad 4; no fused
+    update: the replay updates in plain code, as the reference does),
+    every loss finite. Returns (counts, losses, final params)."""
+    from repro_torch.core import tree as T
+    from repro_torch.optim.sgd import init_momentum
+    counts = _train_counts()
+    for w in counts.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    final, _, losses = engine.run(params, init_momentum(params),
+                                  iter(batches), steps=REPLAY_COMMITS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    got = {k: w.launches for k, w in counts.items()}
+    n = len(params["conv"])               # the first conv has no dgrad
+    want = {"lowering_conv": n * REPLAY_COMMITS,
+            "wgrad": n * REPLAY_COMMITS, "dgrad": (n - 1) * REPLAY_COMMITS,
+            "fused_update": 0}
+    finite = all(math.isfinite(x) for x in losses)
+    if got != want or len(losses) != REPLAY_COMMITS or not finite:
+        fail(f"replay {label}: launches {got} (want {want}), "
+             f"{len(losses)} losses, finite {finite}")
+    ms = engine.telemetry.step_s[-1] / REPLAY_COMMITS * 1e3
+    batch_bytes = sum(x.nbytes for b in batches for x in b.values())
+    version = sum(t.numel() * t.element_size() for t in T.leaves(params))
+    log(f"[replay] {label}: {REPLAY_COMMITS} commits in "
+        f"{engine.telemetry.step_s[-1] * 1e3:.1f} ms, {ms:.2f} ms a commit "
+        f"(host clock, the batches on the card), losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, peak memory above the start {peak / 1e9:.3f} GB "
+        f"(the batches {batch_bytes / 1e9:.3f} GB, a CaffeNet version {version / 1e6:.1f} MB); launches {got} "
+        "ok")
+    return got, losses, final
+
+
+def phase_replay(torch) -> dict:
+    """Trace replay at full CaffeNet width (28.8 M fp32 params, group batch
+    64, the synthetic image stream): ``Engine(strategy="trace-replay")``
+    along a ``queue_sim`` trace (g = 4, exponential service) with ``scan``
+    (an R-deep ring of versions), then along ``EventTrace.round_robin(4,
+    32, "grouped")`` with ``fused`` and with ``scan``, which must agree
+    within 1e-4 (losses and final params); then the first replay
+    profiled. Every commit's gradient runs B2-B4. -> the launch counts."""
+    from repro_torch.core import queue_sim
+    from repro_torch.core import tree as T
+    from repro_torch.data.pipeline import DataConfig, SyntheticImages
+    from repro_torch.engine import Engine
+    from repro_torch.exec import EventTrace
+    import numpy as np
+    from repro_torch.exec.replay import _read_slots
+    from repro_torch.models import cnn as C
+    dev = torch.device("cuda")
+    cfg = C.CAFFENET
+    params = C.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
+    t0 = time.perf_counter()
+    batches = list(SyntheticImages(DataConfig(
+        batch_size=CNN_GROUP_BATCH, image_size=cfg.image_size,
+        channels=cfg.in_channels, num_classes=cfg.num_classes,
+        seed=0)).batches(REPLAY_COMMITS))
+    log(f"[replay] {REPLAY_COMMITS} host batches of {CNN_GROUP_BATCH} "
+        f"images made in {time.perf_counter() - t0:.1f} s (set-up)")
+    _, qtrace = queue_sim.simulate(g=REPLAY_G, t_conv=1.0, t_fc=0.05,
+                                   iters=REPLAY_COMMITS, exponential=True,
+                                   seed=0, return_trace=True)
+    qtrace = qtrace.truncate(REPLAY_COMMITS)
+    grouped = EventTrace.round_robin(REPLAY_G, REPLAY_COMMITS, "grouped")
+    total = dict.fromkeys(("lowering_conv", "wgrad", "dgrad"), 0)
+    runs = {}
+    for label, trace, impl in (("queue_sim", qtrace, "scan"),
+                               ("round-robin", grouped, "fused"),
+                               ("round-robin", grouped, "scan")):
+        eng = Engine(lambda p, b: C.loss_fn(p, b, cfg),
+                     strategy="trace-replay", trace=trace, lr=0.01,
+                     momentum=0.3, replay_impl=impl, device=dev)
+        ring = (f"R = {_read_slots(trace, None)[0]}" if impl == "scan"
+                else "no ring")
+        got, losses, final = _replay_run(
+            torch, eng, params, batches,
+            f"{label} g={trace.num_groups} {impl} ({ring}, staleness mean "
+            f"{float(trace.staleness.mean()):.2f} max {trace.max_staleness})")
+        runs[(label, impl)] = (losses, final)
+        for k in total:
+            total[k] += got[k]
+        del eng
+        _free(torch)
+    stacked = {k: torch.from_numpy(np.stack([b[k] for b in batches])).to(
+        dev) for k in batches[0]}
+    eng = Engine(lambda p, b: C.loss_fn(p, b, cfg), strategy="trace-replay",
+                 trace=qtrace, lr=0.01, momentum=0.3, device=dev)
+    _profile_fn(torch, lambda: eng.replay(params, stacked),
+                f"replay of {REPLAY_COMMITS} commits, queue_sim trace, scan",
+                ("lowering_conv", "wgrad", "dgrad", "fused_update"), reps=1)
+    del eng, stacked
+    (lf, pf), (ls, ps) = (runs[("round-robin", i)] for i in ("fused",
+                                                            "scan"))
+    e_loss = max(abs(a - b) for a, b in zip(lf, ls))
+    e_par = max((a - b).abs().max().item()
+                for a, b in zip(T.leaves(pf), T.leaves(ps)))
+    if e_loss > 1e-4 or e_par > 1e-4:
+        fail(f"replay round-robin: fused vs scan losses {e_loss:.3e}, "
+             f"params {e_par:.3e} (tol 1e-4)")
+    log(f"[replay] round-robin fused vs scan: losses max_abs_err "
+        f"{e_loss:.3e}, final params max_abs_err {e_par:.3e} (tol 1e-4) ok")
+    del runs, params, batches
+    _free(torch)
+    return total
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2348,6 +2774,15 @@ def main(argv=None) -> None:
     _free(torch)
     for name, n in phase_families(torch).items():
         launches[name] += n
+    _free(torch)
+    t0 = time.perf_counter()
+    launches["flash"] += phase_whisper(torch)["flash"]
+    launches["flash"] += phase_vision(torch)["flash"]
+    log(f"[vlm] phase 15 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name, n in phase_replay(torch).items():
+        launches[name] += n
+    log(f"[replay] phase 16 in {time.perf_counter() - t0:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

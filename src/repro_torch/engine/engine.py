@@ -29,7 +29,9 @@ Algorithm-1 ``Runner`` (``core.auto_optimizer``): ``engine(state, g=,
 mu=, eta=, steps=, probe=)`` draws ``steps`` batches from
 ``sample_batches`` and runs them through the strategy's ``run_stacked``.
 ``profile`` is the cluster subsystem's black-box probe of the engine's own
-step. Trace replay (ROADMAP item 13) is not ported yet.
+step. With ``trace=`` and strategy ``"trace-replay"``, ``run`` executes
+momentum-SGD along the recorded ``EventTrace`` instead (``replay``: one
+stale commit per trace event, ``exec.replay``).
 """
 from __future__ import annotations
 
@@ -85,6 +87,9 @@ class Engine:
     shares (``cluster.Plan.weights``, ``Plan.allocation.microbatches``).
     ``sample_batches(generator, steps, batch_size)`` + ``batch_size``
     enable the Runner protocol (``__call__``); ``seed`` seeds its stream.
+    ``trace`` / ``replay_impl`` (``"scan"``, ``"python"`` or ``"fused"``)
+    / ``replay_depth`` (a cap on the parameter-history ring) serve the
+    ``"trace-replay"`` strategy.
     """
 
     def __init__(self, loss_fn: Callable, *, strategy: str = "grouped-fused",
@@ -99,6 +104,8 @@ class Engine:
                  bucket_bytes: int = DEFAULT_BUCKET_BYTES,
                  sample_batches: Optional[Callable] = None,
                  batch_size: Optional[int] = None, seed: int = 0,
+                 trace=None, replay_impl: str = "scan",
+                 replay_depth: Optional[int] = None,
                  checkpoint_dir: str = "", checkpoint_every: int = 0,
                  device="cuda", tracer=None):
         if exec_mode not in EXEC_MODES:
@@ -131,6 +138,8 @@ class Engine:
         self.bucket_bytes = int(bucket_bytes)
         self.sample_batches, self.batch_size = sample_batches, batch_size
         self.seed = seed
+        self.trace = trace
+        self.replay_impl, self.replay_depth = replay_impl, replay_depth
         self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = checkpoint_every
         self.telemetry = timing.Telemetry()
@@ -350,7 +359,11 @@ class Engine:
         shard only), telemetry and checkpoint hooks. The caller's
         ``params`` / ``mom`` (full trees) are copied onto the device first
         and never changed. Returns ``(params, mom, losses)`` (full trees;
-        losses: Python floats)."""
+        losses: Python floats). Under ``"trace-replay"`` the iterator
+        supplies one batch per trace commit (``replay``)."""
+        if self.strategy.name == "trace-replay":
+            return self._run_replay(params, batches, steps=steps,
+                                    log_every=log_every, log=log)
         params = T.tree_map(
             lambda t: t.detach().to(self.device, copy=True), params)
         mom = T.tree_map(lambda t: t.detach().to(self.device, copy=True), mom)
@@ -409,6 +422,66 @@ class Engine:
                 params, mom, (losses, self.shard_losses[n_shard:]))
             self.shard_losses[n_shard:] = shard
         return params, mom, losses
+
+    def replay(self, params, batches, *, steps: Optional[int] = None):
+        """Execute the engine's trace along already-stacked ``batches``
+        (device tensors with leaves (T, ...), one batch per commit), the
+        trace truncated to ``steps`` commits if given. Returns
+        ``(final_params, losses (T,) numpy)``; the wall time (ending in
+        the losses' copy to the host) lands in telemetry, with the
+        ``staleness`` series, the ``replay_max_staleness`` gauge and the
+        ``replay_commits`` counter."""
+        trace = self.trace
+        if trace is None:
+            raise ValueError("strategy 'trace-replay' needs Engine(trace=...)")
+        if steps is not None:
+            trace = trace.truncate(steps)
+        if len(trace) == 0:
+            raise ValueError("trace has no commits to replay "
+                             f"(after truncation to {steps})")
+        # the per-commit read-to-commit distance the replay executes
+        reg = self.telemetry.registry
+        stale = reg.series("staleness")
+        for t, s in enumerate(trace.staleness):
+            stale.append(float(s), step=t)
+        reg.gauge("replay_max_staleness").set(trace.max_staleness)
+        reg.counter("replay_commits").inc(len(trace))
+        with self.tracer.span("engine.replay", commits=len(trace),
+                              impl=self.replay_impl,
+                              num_groups=trace.num_groups):
+            t0 = timing.monotonic()
+            final, losses, _ = self.strategy.replay(self, params, batches,
+                                                    trace=trace)
+            self.telemetry.record(step_s=timing.monotonic() - t0)
+        return final, np.asarray(losses)
+
+    def _run_replay(self, params, batches, *, steps, log_every, log):
+        """``run`` under ``"trace-replay"``: the first min(steps, commits)
+        host batches stacked onto the device, then ``replay``. Momentum
+        starts at zero (the replay owns it) and the returned ``mom`` is
+        zeros."""
+        if self.trace is None:
+            raise ValueError("strategy 'trace-replay' needs Engine(trace=...)")
+        n = min(steps, len(self.trace))
+        if n == 0:
+            raise ValueError("trace has no commits to replay "
+                             f"(after truncation to {steps})")
+        collected = list(itertools.islice(iter(batches), n))
+        if len(collected) < n:
+            raise ValueError(f"trace has {n} commits but the batch stream "
+                             f"ended after {len(collected)}")
+        stacked = self._on_device(T.tree_map(
+            lambda *xs: np.stack([np.asarray(x) for x in xs]), *collected))
+        params = T.tree_map(lambda t: t.detach().to(self.device), params)
+        final, losses = self.replay(params, stacked, steps=n)
+        dt = self.telemetry.step_s[-1]
+        if log_every:
+            for i in range(0, n, log_every):
+                log(f"commit {i:5d} loss {float(losses[i]):.4f}")
+            log(f"replayed {n} commits in {dt:.2f}s "
+                f"({dt / n * 1e3:.0f} ms/commit, impl={self.replay_impl})")
+        return (final, T.tree_map(torch.zeros_like, final),
+                [float(x) for x in losses])
 
     def _maybe_checkpoint(self, step_no: int, built, params, mom) -> None:
         if not self.checkpoint_dir or not self.checkpoint_every:

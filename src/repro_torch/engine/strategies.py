@@ -7,6 +7,8 @@ the Algorithm-1 Runner (the JAX package's ``engine/strategies.py``):
   grouped-scan   g async compute groups, literal O(g) sequential update
   delayed        exact delayed SGD (staleness S=g-1, paper Theorem 1) —
                  the default Runner substrate for Algorithm 1
+  trace-replay   momentum-SGD executed along a recorded ``EventTrace``
+                 (``exec.replay``): one stale commit per trace event
 
 A strategy provides ``build_step`` (a per-round step + batch preparation)
 and/or ``run_stacked`` (a whole-run loop over stacked batches, used by
@@ -14,9 +16,8 @@ the Runner protocol, ``Engine.__call__``). ``build_step`` places the step
 by the engine's resolved mode (``Engine._resolve_exec``): ``"spmd"``
 (this rank's step over the group mesh, ``engine.spmd``), ``"reference"``
 (its single-process bitwise twin) or ``"vmap"`` (the g groups' gradients
-one after another on one device, ``core.async_sgd``). ``trace-replay`` is
-not ported yet: asking for it raises ``NotImplementedError`` naming its
-ROADMAP item.
+one after another on one device, ``core.async_sgd``). ``trace-replay``
+provides ``replay`` instead, which ``Engine.replay`` drives.
 """
 from __future__ import annotations
 
@@ -34,9 +35,6 @@ from repro_torch.engine.spmd import (device_batch_split,
                                      make_spmd_grouped_step)
 
 _REGISTRY: Dict[str, "Strategy"] = {}
-_NOT_PORTED = {
-    "trace-replay": "ROADMAP Queue A item 13 (exec/replay.py)",
-}
 
 
 def register_strategy(cls):
@@ -46,9 +44,6 @@ def register_strategy(cls):
 
 
 def get_strategy(name: str) -> "Strategy":
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"strategy {name!r} is not ported yet: "
-                                  f"{_NOT_PORTED[name]}")
     try:
         return _REGISTRY[name]
     except KeyError:
@@ -247,3 +242,25 @@ class DelayedStrategy(Strategy):
             engine.loss_fn, params, batches, staleness=g - 1, lr=lr,
             momentum=momentum, weight_decay=engine.weight_decay)
         return final, losses.float().cpu().numpy()
+
+
+@register_strategy
+class TraceReplayStrategy(Strategy):
+    """Execute momentum-SGD along the engine's recorded ``EventTrace``
+    (``exec.replay``): one stale commit per trace event instead of
+    round-robin rounds. Run-level only — per-commit staleness needs the
+    whole schedule, so there is no per-round ``step`` and no Runner."""
+    name = "trace-replay"
+    supports_step = False
+    supports_runner = False
+
+    def replay(self, engine, params, batches, trace=None):
+        """``trace`` (e.g. a truncated view) overrides ``engine.trace``."""
+        from repro_torch.exec.replay import replay_trace
+        trace = engine.trace if trace is None else trace
+        if trace is None:
+            raise ValueError("strategy 'trace-replay' needs Engine(trace=...)")
+        return replay_trace(
+            engine.loss_fn, params, batches, trace, lr=engine.lr,
+            momentum=engine.momentum, weight_decay=engine.weight_decay,
+            impl=engine.replay_impl, depth=engine.replay_depth)

@@ -4,11 +4,11 @@ batching (``repro_torch.serving``), on the card by default.
 The JAX package's ``launch/serve.py`` with the same flags, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch path) and
 the port's ``--attn-impl`` names (``torch`` / ``cuda`` / ``cuda_gather``,
-default ``cuda`` on the card and ``torch`` on the CPU). The dense, MoE,
-SSM and hybrid families serve in both modes, except that continuous
-batching pages a KV cache and so takes dense and MoE archs only (an SSM
-or hybrid arch raises ``ValueError``, as in JAX); ``vlm`` and ``encdec``
-raise ``NotImplementedError``.
+default ``cuda`` on the card and ``torch`` on the CPU). Every family
+serves statically; continuous batching pages a KV cache and so takes
+dense and MoE archs only (an SSM, hybrid, vlm or encdec arch raises
+``ValueError``, as in JAX). The vlm and encdec archs serve, as in JAX,
+with their image / encoder K/V caches left at zero.
 
 - ``--mode static``: one batch, prefill filling the whole KV cache, then
   a per-token decode loop; per-phase timings go through the metric
@@ -21,6 +21,7 @@ raise ``NotImplementedError``.
 
   python -m repro_torch.launch.serve --arch qwen2-7b --mode continuous
   python -m repro_torch.launch.serve --arch mamba2-2.7b
+  python -m repro_torch.launch.serve --arch whisper-base
   python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b --mode continuous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b \\
       --smoke --mode continuous --device cpu --requests 4

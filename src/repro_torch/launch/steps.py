@@ -3,14 +3,20 @@
 accumulation, the prefill step and the decode step, and the long-context
 window rule they share.
 
+The ``vlm`` and ``encdec`` families take their modality frontends' outputs
+as stubs in the batch: ``img_emb`` (B, num_image_tokens, d) and
+``enc_emb`` (B, encoder_seq, d), as the JAX ``batch_specs`` shapes them;
+``modality_inputs`` draws them from a numpy seed.
+
 Training runs attention under autograd through ``full_attention`` or
 ``chunked_attention`` (``attn_impl="torch"``, the reference's ``"xla"``):
 the flash kernel is forward-only, as the reference's Pallas kernel is, and
 raises if asked for gradients. Prefill may take either arm; decode runs
 ``transformer.decode_step``. Prefill and decode run under ``no_grad``.
 
-The JAX module's ``batch_specs``, ``params_specs``, ``cache_specs_struct``
-and ``make_train_step``'s ``grad_shardings`` have no counterpart: they are
+Of the JAX module's ``batch_specs`` only the modality stubs' shapes are
+kept (``modality_inputs``); it, ``params_specs``, ``cache_specs_struct``
+and ``make_train_step``'s ``grad_shardings`` are otherwise
 ``ShapeDtypeStruct`` / GSPMD helpers of the XLA dry-run lane (ROADMAP
 Queue A item 15).
 """
@@ -18,6 +24,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig, InputShape, TrainConfig
@@ -45,11 +52,31 @@ def supports_shape(cfg: ArchConfig, shape: InputShape) -> bool:
     return not (cfg.arch_type == "encdec" and shape.name == "long_500k")
 
 
+def modality_inputs(cfg: ArchConfig, lead: tuple, *, seed: int = 0,
+                    device="cuda") -> dict:
+    """The stub modality inputs of a batch with leading axes ``lead`` (e.g.
+    ``(B,)``, or ``(grad_accum, b)``): ``{"enc_emb": (*lead, encoder_seq,
+    d)}`` for encdec, ``{"img_emb": (*lead, num_image_tokens, d)}`` for
+    vlm, ``{}`` otherwise; standard normals from ``numpy`` seeded by
+    ``seed``, in the compute dtype on ``device``."""
+    key, n = {"encdec": ("enc_emb", cfg.encoder_seq),
+              "vlm": ("img_emb", cfg.num_image_tokens)}.get(cfg.arch_type,
+                                                           (None, 0))
+    if key is None:
+        return {}
+    x = np.random.default_rng(seed).standard_normal(
+        tuple(lead) + (n, cfg.d_model), dtype=np.float32)
+    return {key: torch.from_numpy(x).to(device=device,
+                                        dtype=cfg.dtype("compute"))}
+
+
 def make_train_step(cfg: ArchConfig, tc: TrainConfig, shape: InputShape,
                     *, attn_impl: str = "torch"):
     """Synchronous (g=1) SGD-momentum step, ``train_step(params, mom,
-    batch) -> (params, mom, loss)``. With ``tc.grad_accum > 1`` every
-    ``batch`` leaf has a leading microbatch axis ``(grad_accum, b, S)``;
+    batch) -> (params, mom, loss)``; ``batch`` holds "tokens", "labels"
+    and, for vlm and encdec, the ``modality_inputs``. With
+    ``tc.grad_accum > 1`` every ``batch`` leaf has a leading microbatch
+    axis ``(grad_accum, b, ...)``;
     the losses and fp32 gradients of the microbatches are summed and
     divided by ``grad_accum``, then ``optim.sgd.sgd_update`` applies
     them. For g > 1, and for the whole training loop, see ``engine``."""
@@ -75,7 +102,8 @@ def make_prefill_step(cfg: ArchConfig, shape: InputShape, *,
     """``prefill_step(params, batch) -> (last-position logits (B,1,V),
     cache)``, the cache ``transformer.forward``'s: ``{"blocks": {"k","v":
     (L,B,S,K,hd)}}`` for dense and MoE stacks, the final states for SSM and
-    hybrid ones."""
+    hybrid ones, with the cross K/V for vlm and encdec (whose ``batch``
+    carries the ``modality_inputs``)."""
     window = effective_window(cfg, shape)
 
     @torch.no_grad()

@@ -14,8 +14,15 @@ caffenet, with the merged-FC head), full size or ``--smoke``, plus
 lowering_cuda|lowering|lowering_autodiff|torch`` (CNN archs; default: the
 config's, ``lowering_cuda``), ``--update-impl cuda|torch`` (default
 ``cuda``). As in the JAX launcher, ``encdec`` and ``vlm`` archs exit (their
-modality-stub variants are examples); ``--replay-trace`` raises
-``NotImplementedError`` naming its ROADMAP Queue A item (13).
+modality-stub variants are examples).
+
+Trace replay (``--replay-trace trace.npz``, a saved ``EventTrace``):
+instead of round-robin rounds, the engine's ``trace-replay`` strategy
+executes one stale momentum-SGD commit per trace event on one batch of
+``--batch`` examples each (the trace truncated to ``--steps`` commits),
+through ``--replay-impl`` (``scan``, ``python`` or ``fused``) and an
+optional ``--replay-depth`` cap on the parameter-history ring; it excludes
+``--plan``, as in the JAX launcher.
 
 Heterogeneous planning (``--cluster-spec ... --plan``, as in the JAX
 launcher) picks g, the device->group packing and throughput-proportional
@@ -45,6 +52,8 @@ the one asked for. Only rank 0 prints and writes files.
       --update-impl torch --groups 2 --batch 16 --exec-mode spmd --steps 3
   python -m repro_torch.launch.train --arch caffenet --batch 256 \\
       --cluster-spec 1xgpu-g2.2xlarge,2xcpu-c4.4xlarge --plan --steps 5
+  python -m repro_torch.launch.train --arch caffenet --batch 64 \\
+      --steps 32 --replay-trace trace.npz
 """
 from __future__ import annotations
 
@@ -64,11 +73,6 @@ from repro_torch.engine.engine import EXEC_MODES
 from repro_torch.models import cnn as C
 from repro_torch.models import transformer as M
 from repro_torch.optim.sgd import init_momentum
-
-_NOT_PORTED = {
-    "replay_trace": "trace replay is ROADMAP Queue A item 13",
-}
-
 
 def _build_workload(args, device):
     """(cfg, params, loss_fn, data_iterable, head_filter) per --arch."""
@@ -200,14 +204,23 @@ def main(argv=None):
                     help="plan g / device packing / batch shares over "
                          "--cluster-spec and train share-weighted "
                          "(overrides --groups and --mp)")
-    # a flag of the JAX launcher whose subsystem is not ported yet
-    ap.add_argument("--replay-trace", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--replay-trace", type=str, default="",
+                    help="replay a recorded event trace (.npz EventTrace): "
+                         "one per-commit stale update per trace commit "
+                         "instead of round-robin rounds (truncated to "
+                         "--steps commits)")
+    ap.add_argument("--replay-impl", choices=("scan", "python", "fused"),
+                    default="scan")
+    ap.add_argument("--replay-depth", type=int, default=0,
+                    help="cap the replay parameter-history ring "
+                         "(0 = full max-staleness depth)")
     args = ap.parse_args(argv)
     if args.plan and not args.cluster_spec:
         ap.error("--plan requires --cluster-spec")
-    for flag, why in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
+    if args.plan and args.replay_trace:
+        ap.error("--plan and --replay-trace are mutually exclusive "
+                 "(a replay executes a recorded schedule; there is "
+                 "nothing for the planner to allocate)")
     return _run(args)
 
 
@@ -248,6 +261,8 @@ def _train(args, device):
 
     cfg, params, loss_fn, data, head_filter = _build_workload(args, device)
     mom = init_momentum(params)
+    if args.replay_trace:
+        return _replay(args, cfg, params, mom, loss_fn, data, device, say)
     groups, group_weights, micro_sizes, mp = args.groups, None, None, args.mp
     if args.plan:
         plan = _plan(args, params, cfg, say)
@@ -297,6 +312,38 @@ def _train(args, device):
         print(f"metrics -> {args.metrics_out} ({n} records)")
     if args.ckpt:
         say(f"checkpointed to {args.ckpt}")
+    return losses
+
+
+def _replay(args, cfg, params, mom, loss_fn, data, device, say):
+    """``--replay-trace``: the engine's ``trace-replay`` strategy along the
+    saved trace, one batch a commit."""
+    from repro_torch.exec.trace import EventTrace
+    trace = EventTrace.load(args.replay_trace)
+    engine = Engine(loss_fn, strategy="trace-replay", trace=trace,
+                    lr=args.lr, momentum=args.momentum,
+                    weight_decay=args.weight_decay,
+                    update_impl=args.update_impl,
+                    replay_impl=args.replay_impl,
+                    replay_depth=args.replay_depth or None, device=device)
+    t = trace.truncate(args.steps)
+    if len(t) == 0:
+        raise SystemExit(f"{args.replay_trace} has no commits to replay "
+                         f"(after truncation to --steps {args.steps})")
+    say(f"arch={cfg.name} replaying {args.replay_trace}: {len(t)} commits, "
+        f"g={trace.num_groups}, mean staleness "
+        f"{float(t.staleness.mean()):.2f}, max {t.max_staleness}")
+    _, _, losses = engine.run(params, mom, data, steps=args.steps,
+                              log_every=10, log=say)
+    say(f"final loss {np.mean(losses[-5:]):.4f} (impl={args.replay_impl})")
+    if args.metrics_out:
+        from repro_torch.obs import run_metadata
+        run = run_metadata(device=device.type, extra={
+            "arch": args.arch, "groups": trace.num_groups,
+            "batch": args.batch, "steps": args.steps,
+            "strategy": "trace-replay"})
+        n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
+        print(f"metrics -> {args.metrics_out} ({n} records)")
     return losses
 
 

@@ -58,9 +58,10 @@ FP32_LEAVES = ("router", "A_log", "D", "dt_bias", "lambda_raw")
 
 
 def _keeps_dtype(key: str) -> bool:
-    """Norm scales and the ``FP32_LEAVES`` keep their dtype under the
+    """Norm scales (``ln``, ``ln1``..``ln3``, ``ln_f``, Whisper's
+    ``enc_ln``) and the ``FP32_LEAVES`` keep their dtype under the
     compute-dtype cast."""
-    return key.startswith("ln") or key in FP32_LEAVES
+    return key.startswith("ln") or key.endswith("_ln") or key in FP32_LEAVES
 
 
 def to_compute_dtype(params, cfg: ArchConfig, device=None):

@@ -1,5 +1,6 @@
-"""Core transformer layers, dense subset: RMSNorm, RoPE, GQA attention
-(full / chunked / decode-with-cache), SwiGLU & GeLU MLPs, embedding.
+"""Core transformer layers: RMSNorm, RoPE, sinusoidal positions, GQA
+attention (full / chunked / cross / decode-with-cache), SwiGLU & GeLU
+MLPs, embedding.
 
 Port of the JAX package's ``models/layers.py`` with its numerics kept:
 
@@ -22,6 +23,7 @@ over KV chunks where JAX has a ``lax.scan``) under autograd.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Optional
 
@@ -39,12 +41,20 @@ KV_CHUNK = 1024
 
 
 def _randn(shape, generator: torch.Generator, std: float,
-           dtype: torch.dtype) -> torch.Tensor:
+           dtype: torch.dtype, lead: tuple = ()) -> torch.Tensor:
     """Normal(0, std) drawn in fp32 on the generator's device, stored in
-    ``dtype`` (the fp32 draw is freed as soon as it is cast)."""
-    x = torch.randn(shape, generator=generator, device=generator.device,
-                    dtype=torch.float32)
-    return x.mul_(std).to(dtype)
+    ``dtype``, one leading index of ``lead + shape`` at a time in row-major
+    order: the fp32 draw of a stacked leaf (30 GB for llama-3.2-vision's
+    ``w_up`` at 40 layers) never exists whole. On the CPU the numbers are
+    those of one draw of the whole leaf wherever a layer holds a multiple
+    of 16 values (the generator fills normals in blocks of 16)."""
+    out = torch.empty(lead + tuple(shape), dtype=dtype,
+                      device=generator.device)
+    for idx in itertools.product(*map(range, lead)):
+        x = torch.randn(shape, generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        out[idx] = x.mul_(std)
+    return out
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
@@ -58,6 +68,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
 
 def init_rms_norm(d: int, dtype, device, lead: tuple = ()) -> torch.Tensor:
     return torch.zeros(lead + (d,), dtype=dtype, device=device)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal position embeddings (fp32), (seq, d)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    inv = torch.exp(-math.log(10_000.0) * dim / d)
+    ang = pos * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -83,18 +102,20 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_attention(cfg: ArchConfig, generator: torch.Generator, *,
-                   dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+                   dtype: Optional[torch.dtype] = None, lead: tuple = (),
+                   cross: bool = False):
     """``dtype`` overrides the stored dtype (default: the param dtype);
-    ``lead`` prepends axes, e.g. ``(num_layers,)`` for a stacked block."""
+    ``lead`` prepends axes, e.g. ``(num_layers,)`` for a stacked block.
+    A ``cross`` (cross-attention) block has no qkv biases."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     dt = dtype or cfg.dtype("param")
     std = d ** -0.5
-    p = {"wq": _randn(lead + (d, h, hd), generator, std, dt),
-         "wk": _randn(lead + (d, kv, hd), generator, std, dt),
-         "wv": _randn(lead + (d, kv, hd), generator, std, dt),
-         "wo": _randn(lead + (h, hd, d), generator, std, dt)}
-    if cfg.qkv_bias:
+    p = {"wq": _randn((d, h, hd), generator, std, dt, lead),
+         "wk": _randn((d, kv, hd), generator, std, dt, lead),
+         "wv": _randn((d, kv, hd), generator, std, dt, lead),
+         "wo": _randn((h, hd, d), generator, std, dt, lead)}
+    if cfg.qkv_bias and not cross:
         dev = generator.device
         p["bq"] = torch.zeros(lead + (h, hd), dtype=dt, device=dev)
         p["bk"] = torch.zeros(lead + (kv, hd), dtype=dt, device=dev)
@@ -237,11 +258,20 @@ def attention_forward(p, x, cfg: ArchConfig, *, positions=None, causal=True,
 
 
 def attention_decode(p, x, cache, pos: int, cfg: ArchConfig, *,
-                     window: Optional[int] = None):
-    """Single-token decode (self-attention). x: (B,1,D). cache: {"k","v"}:
-    (B,W,K,hd) ring buffer (W = window or full seq), updated in place.
-    pos: absolute position (int). Returns (out, cache)."""
+                     window: Optional[int] = None, kv_src_cache=None):
+    """Single-token decode. x: (B,1,D). cache: {"k","v"}: (B,W,K,hd) ring
+    buffer (W = window or full seq), updated in place. pos: absolute
+    position (int). With ``kv_src_cache`` ({"k","v"}: (B,Sk,K,hd), the
+    image or encoder K/V) it is cross-attention over that static cache:
+    no update, no RoPE, ``full_attention``. Returns (out, cache)."""
     cd = cfg.dtype("compute")
+    if kv_src_cache is not None:
+        q = _proj(x, p["wq"].to(cd))
+        if "bq" in p:
+            q = q + p["bq"].to(cd)
+        out = full_attention(q, kv_src_cache["k"], kv_src_cache["v"],
+                             causal=False)
+        return _out_proj(out, p["wo"].to(cd)), cache
     q, k, v = _project_qkv(p, x, None, cfg)
     posb = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                       device=x.device)
@@ -289,10 +319,10 @@ def init_mlp(cfg: ArchConfig, generator: torch.Generator,
     d = cfg.d_model
     f = d_ff if d_ff is not None else cfg.d_ff
     dt = dtype or cfg.dtype("param")
-    p = {"w_up": _randn(lead + (d, f), generator, d ** -0.5, dt),
-         "w_down": _randn(lead + (f, d), generator, f ** -0.5, dt)}
+    p = {"w_up": _randn((d, f), generator, d ** -0.5, dt, lead),
+         "w_down": _randn((f, d), generator, f ** -0.5, dt, lead)}
     if cfg.act == "swiglu":
-        p["w_gate"] = _randn(lead + (d, f), generator, d ** -0.5, dt)
+        p["w_gate"] = _randn((d, f), generator, d ** -0.5, dt, lead)
     return p
 
 

@@ -20,7 +20,6 @@ and the parity tests rely on that.
 """
 from __future__ import annotations
 
-import itertools
 from typing import Optional
 
 import torch
@@ -34,17 +33,6 @@ MOE_CHUNK = 4096
 MAX_CAPACITY = 1024
 
 
-def _randn_per_layer(shape, generator: torch.Generator, std: float,
-                     dtype: torch.dtype, lead: tuple) -> torch.Tensor:
-    """``layers._randn`` one leading index at a time, so the fp32 draw of a
-    stacked expert leaf (16.6 GB for one of qwen2-moe-a2.7b's) never
-    exists whole."""
-    out = torch.empty(lead + shape, dtype=dtype, device=generator.device)
-    for idx in itertools.product(*map(range, lead)):
-        out[idx] = L._randn(shape, generator, std, dtype)
-    return out
-
-
 def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
              dtype: Optional[torch.dtype] = None, lead: tuple = ()):
     """The JAX tree: ``router`` (D, E) fp32, ``w_gate`` / ``w_up`` (E, D,
@@ -53,19 +41,17 @@ def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     dt = dtype or cfg.dtype("param")
-    p = {"router": L._randn(lead + (d, e), generator, d ** -0.5,
-                            torch.float32),
-         "w_gate": _randn_per_layer((e, d, f), generator, d ** -0.5, dt,
-                                    lead),
-         "w_up": _randn_per_layer((e, d, f), generator, d ** -0.5, dt, lead),
-         "w_down": _randn_per_layer((e, f, d), generator, f ** -0.5, dt,
-                                    lead)}
+    p = {"router": L._randn((d, e), generator, d ** -0.5, torch.float32,
+                            lead),
+         "w_gate": L._randn((e, d, f), generator, d ** -0.5, dt, lead),
+         "w_up": L._randn((e, d, f), generator, d ** -0.5, dt, lead),
+         "w_down": L._randn((e, f, d), generator, f ** -0.5, dt, lead)}
     if m.num_shared_experts > 0:
         fs = m.num_shared_experts * f
         p["shared"] = {
-            "w_gate": L._randn(lead + (d, fs), generator, d ** -0.5, dt),
-            "w_up": L._randn(lead + (d, fs), generator, d ** -0.5, dt),
-            "w_down": L._randn(lead + (fs, d), generator, fs ** -0.5, dt)}
+            "w_gate": L._randn((d, fs), generator, d ** -0.5, dt, lead),
+            "w_up": L._randn((d, fs), generator, d ** -0.5, dt, lead),
+            "w_down": L._randn((fs, d), generator, fs ** -0.5, dt, lead)}
     return p
 
 

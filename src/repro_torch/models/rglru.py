@@ -37,15 +37,15 @@ def init_rglru_block(cfg: ArchConfig, generator: torch.Generator, *,
     dt = dtype or cfg.dtype("param")
     dev = generator.device
     return {
-        "w_gate_branch": L._randn(lead + (d, dr), generator, d ** -0.5, dt),
-        "w_rec_in": L._randn(lead + (d, dr), generator, d ** -0.5, dt),
-        "conv_w": L._randn(lead + (k, dr), generator, 0.1, dt),
+        "w_gate_branch": L._randn((d, dr), generator, d ** -0.5, dt, lead),
+        "w_rec_in": L._randn((d, dr), generator, d ** -0.5, dt, lead),
+        "conv_w": L._randn((k, dr), generator, 0.1, dt, lead),
         "conv_b": torch.zeros(lead + (dr,), dtype=dt, device=dev),
-        "w_a": L._randn(lead + (dr, dr), generator, dr ** -0.5, dt),
-        "w_x": L._randn(lead + (dr, dr), generator, dr ** -0.5, dt),
+        "w_a": L._randn((dr, dr), generator, dr ** -0.5, dt, lead),
+        "w_x": L._randn((dr, dr), generator, dr ** -0.5, dt, lead),
         "lambda_raw": torch.full(lead + (dr,), 0.65, dtype=torch.float32,
                                  device=dev),
-        "w_out": L._randn(lead + (dr, d), generator, dr ** -0.5, dt),
+        "w_out": L._randn((dr, d), generator, dr ** -0.5, dt, lead),
     }
 
 

@@ -46,14 +46,14 @@ def init_ssm(cfg: ArchConfig, generator: torch.Generator, *,
     f32 = dict(dtype=torch.float32, device=dev)
     a_log = torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
     return {
-        "in_proj": L._randn(lead + (d, proj_out), generator, d ** -0.5, dt),
-        "conv_w": L._randn(lead + (s.conv_width, d_conv), generator, 0.1, dt),
+        "in_proj": L._randn((d, proj_out), generator, d ** -0.5, dt, lead),
+        "conv_w": L._randn((s.conv_width, d_conv), generator, 0.1, dt, lead),
         "conv_b": torch.zeros(lead + (d_conv,), dtype=dt, device=dev),
         "A_log": a_log.expand(lead + (nheads,)).clone(),
         "D": torch.ones(lead + (nheads,), **f32),
         "dt_bias": torch.zeros(lead + (nheads,), **f32),
-        "out_proj": L._randn(lead + (d_inner, d), generator,
-                             d_inner ** -0.5, dt),
+        "out_proj": L._randn((d_inner, d), generator,
+                             d_inner ** -0.5, dt, lead),
     }
 
 

@@ -1,23 +1,40 @@
-"""Language-model assembly for the families the port runs:
+"""Language-model assembly for every arch family of the JAX package:
 
   dense  — (norm, GQA attn, norm, MLP) x L
   moe    — (norm, GQA attn, norm, MoE) x L
   ssm    — (norm, SSD) x L                              (attention-free)
   hybrid — Griffin super-blocks (rec, rec, local-attn) cyclic, the
            remainder layers recurrent
+  vlm    — decoder with a cross-attention block every ``cross_attn_every``
+           layers, over stub image embeddings ``batch["img_emb"]``
+  encdec — Whisper: encoder (non-causal) over stub audio-frame embeddings
+           ``batch["enc_emb"]`` + decoder (causal + cross), sinusoidal
+           positions, no RoPE
 
 Port of the JAX package's ``models/transformer.py``; the JAX ``lax.scan``
 over stacked layer params becomes a Python loop over layers. Params keep
 the JAX tree: ``{"embed", "ln_f", "blocks"}`` with every ``blocks`` leaf
-stacked on a leading layer axis, and for the hybrid ``{"super": {"rec":
-leaves stacked (n_super, n_rec, ...), "attn": (n_super, ...)}, "rem"}``,
-so ``models.convert.params_from_jax`` is a leaf-by-leaf copy. Each forward
-splits every stacked leaf once (``unstack``), so under autograd a leaf's
-gradient is stacked once, as the scan's is. Under autograd each block (a
-hybrid super-block as a whole) is rematerialised when ``cfg.remat`` (JAX's
-``jax.checkpoint`` around the scan body): ``torch.utils.checkpoint`` keeps
-only its inputs and recomputes the block in the backward pass. Caches are
-updated in place (the JAX functions return new ones).
+stacked on a leading layer axis; for the hybrid ``{"super": {"rec":
+leaves stacked (n_super, n_rec, ...), "attn": (n_super, ...)}, "rem"}``;
+for the vlm ``{"super": {"self": (n_super, per - 1, ...), "cross":
+(n_super, ...)}, "rem"}``; for encdec ``{"enc", "enc_ln", "blocks"}``.
+So ``models.convert.params_from_jax`` is a leaf-by-leaf copy. Each
+forward splits every stacked leaf once (``unstack``), so under autograd a
+leaf's gradient is stacked once, as the scan's is. Under autograd each
+block (a hybrid or vlm super-block as a whole) is rematerialised when
+``cfg.remat`` (JAX's ``jax.checkpoint`` around the scan body):
+``torch.utils.checkpoint`` keeps only its inputs and recomputes the block
+in the backward pass. Caches are updated in place (the JAX functions
+return new ones).
+
+Two facts of the reference are kept, not repaired: Whisper's
+``decode_step`` adds the sinusoid of position 0 at every step where
+``forward`` adds positions 0..S-1, so prefill + decode does not give the
+encdec forward's logits; and the vlm forward's cache ``{"super": {"k",
+"v", "ck", "cv"}}`` is not ``init_cache``'s tree (which nests the self
+caches under ``"self"`` and has ``"rem"``). Cross-attention runs
+``full_attention`` in plain PyTorch, as the reference runs it outside its
+Pallas kernel; only self-attention takes ``attn_impl``.
 
 API:
   init_params(generator, cfg)                   -> params
@@ -41,29 +58,14 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
-#: the arch families the port runs
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
-#: arch families of the JAX package the port does not run yet, and the
-#: ROADMAP entry that ports each
-UNPORTED = {
-    "vlm": "the cross-attention blocks (ROADMAP Queue A item 11: the vlm "
-           "and encdec families)",
-    "encdec": "the encoder-decoder blocks (ROADMAP Queue A item 11: the "
-              "vlm and encdec families)",
-}
+#: the arch families the port runs: all of the JAX package's
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port lacks."""
-    t = cfg.arch_type
-    if t in PORTED:
-        return
-    if t in UNPORTED:
-        raise NotImplementedError(
-            f"arch_type {t!r} ({cfg.name}) is not ported yet: it needs "
-            f"{UNPORTED[t]}")
-    raise ValueError(t)
+    """Raise ``ValueError`` for an arch family the JAX package lacks."""
+    if cfg.arch_type not in PORTED:
+        raise ValueError(cfg.arch_type)
 
 
 def unstack(blocks, n: int):
@@ -92,21 +94,37 @@ def _hybrid_counts(cfg: ArchConfig):
     return n_super, n_rem, sum(1 for x in pattern if x == "rec")
 
 
+def _vlm_counts(cfg: ArchConfig):
+    """(blocks a super-block (per - 1 self + 1 cross), super-blocks,
+    remainder dense layers)."""
+    per = cfg.cross_attn_every
+    n_super, n_rem = divmod(cfg.num_layers, per)
+    return per, n_super, n_rem
+
+
 def _init_block(kind: str, cfg: ArchConfig, gen, wdt, lead: tuple):
     """One block's tree, its leaves stacked on ``lead``: the JAX
-    ``_init_{dense,moe,ssm,rec}_block``."""
+    ``_init_{dense,moe,ssm,rec,cross,encdec_dec}_block``."""
     pdt = cfg.dtype("param")
     ln = lambda: L.init_rms_norm(cfg.d_model, pdt, gen.device, lead=lead)
+    attn = lambda cross=False: L.init_attention(cfg, gen, dtype=wdt,
+                                                lead=lead, cross=cross)
+    mlp = lambda: L.init_mlp(cfg, gen, dtype=wdt, lead=lead)
     if kind == "ssm":
         return {"ln": ln(), "ssm": S.init_ssm(cfg, gen, dtype=wdt, lead=lead)}
     if kind == "rec":
         return {"ln1": ln(),
                 "rec": R.init_rglru_block(cfg, gen, dtype=wdt, lead=lead),
-                "ln2": ln(),
-                "mlp": L.init_mlp(cfg, gen, dtype=wdt, lead=lead)}
-    mixer = L.init_attention(cfg, gen, dtype=wdt, lead=lead)
+                "ln2": ln(), "mlp": mlp()}
+    if kind == "cross":
+        return {"ln1": ln(), "cross": attn(cross=True), "ln2": ln(),
+                "mlp": mlp()}
+    if kind == "encdec_dec":
+        return {"ln1": ln(), "attn": attn(), "ln2": ln(),
+                "cross": attn(cross=True), "ln3": ln(), "mlp": mlp()}
+    mixer = attn()
     ffn = (M.init_moe(cfg, gen, dtype=wdt, lead=lead) if kind == "moe"
-           else L.init_mlp(cfg, gen, dtype=wdt, lead=lead))
+           else mlp())
     return {"ln1": ln(), "attn": mixer, "ln2": ln(),
             ("moe" if kind == "moe" else "mlp"): ffn}
 
@@ -115,28 +133,36 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                 weight_dtype: Optional[torch.dtype] = None):
     """Random params on ``generator.device``. Each weight is drawn in fp32
     and stored in ``weight_dtype`` (default: the config's param dtype) one
-    tensor at a time (a stacked expert leaf one layer at a time); norm
-    scales stay in the param dtype and ``convert.FP32_LEAVES`` in fp32.
-    Passing the compute dtype gives what ``convert.to_compute_dtype``
-    would, without the full fp32 copy ever existing."""
+    tensor at a time, a stacked leaf one layer at a time; norm scales stay
+    in the param dtype and ``convert.FP32_LEAVES`` in fp32. Passing the
+    compute dtype gives what ``convert.to_compute_dtype`` would, without
+    the full fp32 copy ever existing."""
     require_ported(cfg)
     pdt = cfg.dtype("param")
     params = {"embed": L.init_embed(cfg, generator, dtype=weight_dtype),
               "ln_f": L.init_rms_norm(cfg.d_model, pdt, generator.device)}
+    block = lambda kind, *lead: _init_block(kind, cfg, generator,
+                                            weight_dtype, lead)
     t = cfg.arch_type
     if t == "hybrid":
         n_super, n_rem, n_rec = _hybrid_counts(cfg)
-        params["super"] = {
-            "rec": _init_block("rec", cfg, generator, weight_dtype,
-                               (n_super, n_rec)),
-            "attn": _init_block("dense", cfg, generator, weight_dtype,
-                                (n_super,))}
+        params["super"] = {"rec": block("rec", n_super, n_rec),
+                           "attn": block("dense", n_super)}
         if n_rem:
-            params["rem"] = _init_block("rec", cfg, generator, weight_dtype,
-                                        (n_rem,))
+            params["rem"] = block("rec", n_rem)
+    elif t == "vlm":
+        per, n_super, n_rem = _vlm_counts(cfg)
+        params["super"] = {"self": block("dense", n_super, per - 1),
+                           "cross": block("cross", n_super)}
+        if n_rem:
+            params["rem"] = block("dense", n_rem)
+    elif t == "encdec":
+        params["enc"] = block("dense", cfg.encoder_layers)
+        params["enc_ln"] = L.init_rms_norm(cfg.d_model, pdt,
+                                           generator.device)
+        params["blocks"] = block("encdec_dec", cfg.num_layers)
     else:
-        params["blocks"] = _init_block(t, cfg, generator, weight_dtype,
-                                       (cfg.num_layers,))
+        params["blocks"] = block(t, cfg.num_layers)
     return params
 
 
@@ -144,10 +170,12 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
 # Block applications (x -> x)
 # ---------------------------------------------------------------------------
 
-def _dense_block(bp, x, cfg, *, window=None, attn_impl="torch"):
+def _dense_block(bp, x, cfg, *, window=None, attn_impl="torch",
+                 causal=True):
     h, kv = L.attention_forward(bp["attn"],
                                 L.rms_norm(x, bp["ln1"], cfg.norm_eps),
-                                cfg, window=window, attn_impl=attn_impl)
+                                cfg, causal=causal, window=window,
+                                attn_impl=attn_impl)
     x = x + h
     x = x + L.mlp_forward(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps),
                           cfg)
@@ -191,6 +219,55 @@ def _super_block(sp, x, cfg, n_rec: int, *, attn_impl="torch"):
     return x, torch.stack(states), kv
 
 
+def _cross_block(bp, x, src, cfg):
+    """A vlm cross block: attention from ``x`` to ``src`` (no RoPE, no
+    mask; plain PyTorch), then the MLP. Returns (x, (k, v) of ``src``)."""
+    h, kv = L.attention_forward(bp["cross"],
+                                L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                                cfg, causal=False, kv_src=src)
+    x = x + h
+    x = x + L.mlp_forward(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps),
+                          cfg)
+    return x, kv
+
+
+def _vlm_super_block(sp, x, img, cfg, per: int, *, window=None,
+                     attn_impl="torch"):
+    """A vlm super-block: ``per - 1`` dense blocks, then the cross block
+    over the image embeddings. Returns (x, k, v stacked over the dense
+    blocks, (ck, cv))."""
+    ks, vs = [], []
+    for bp in unstack(sp["self"], per - 1):
+        x, (k, v) = _dense_block(bp, x, cfg, window=window,
+                                 attn_impl=attn_impl)
+        ks.append(k)
+        vs.append(v)
+    x, ckv = _cross_block(sp["cross"], x, img, cfg)
+    return x, torch.stack(ks), torch.stack(vs), ckv
+
+
+def _encdec_block(bp, x, enc, cfg, *, attn_impl="torch"):
+    """A Whisper decoder block: causal self-attention (full window), cross
+    attention to the encoder output, MLP. Returns (x, (k, v), (ck, cv))."""
+    h, kv = L.attention_forward(bp["attn"],
+                                L.rms_norm(x, bp["ln1"], cfg.norm_eps), cfg,
+                                attn_impl=attn_impl)
+    x = x + h
+    c, ckv = L.attention_forward(bp["cross"],
+                                 L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg,
+                                 causal=False, kv_src=enc)
+    x = x + c
+    x = x + L.mlp_forward(bp["mlp"], L.rms_norm(x, bp["ln3"], cfg.norm_eps),
+                          cfg)
+    return x, kv, ckv
+
+
+def _add_positions(x):
+    """``x`` (B, S, d) plus the sinusoid of positions 0..S-1."""
+    return x + L.sinusoidal_positions(x.shape[1], x.shape[2],
+                                      x.device).to(x.dtype)
+
+
 def _remat(on: bool):
     """``fn(*args, **kw)`` under ``torch.utils.checkpoint`` when ``on``
     (the blocks draw no random numbers: no RNG state to replay)."""
@@ -206,12 +283,17 @@ def _remat(on: bool):
 
 def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
             attn_impl: str = "torch", window: Optional[int] = None):
-    """batch: {"tokens": (B,S) int}. Returns (logits fp32 (B,S,V), aux_loss
-    scalar (the MoE load-balance term summed over layers, else 0),
+    """batch: {"tokens": (B,S) int}, plus "enc_emb" (B,S_enc,d) for
+    encdec and "img_emb" (B,n_img,d) for vlm (the stub modality
+    frontends' outputs). Returns (logits fp32 (B,S,V), aux_loss scalar
+    (the MoE load-balance term summed over layers, else 0),
     cache-or-None). The cache is the JAX one: {"blocks": {"k","v":
     (L,B,S,K,hd)}} (dense, moe); {"blocks": (L,B,H,P,N)} the final SSD
     states (ssm); {"super": {"rec": (n_super,n_rec,B,d_rnn), "k","v":
-    (n_super,B,S,K,hd)}, "rem": (n_rem,B,d_rnn)} (hybrid)."""
+    (n_super,B,S,K,hd)}, "rem": (n_rem,B,d_rnn)} (hybrid); {"super":
+    {"k","v": (n_super,per-1,B,S,K,hd), "ck","cv": (n_super,B,n_img,K,
+    hd)}} (vlm: nothing of the "rem" layers); {"blocks": {"k","v":
+    (L,B,S,K,hd), "ck","cv": (L,B,S_enc,K,hd)}} (encdec)."""
     require_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -246,7 +328,7 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
             hfs.append(hf)
         if return_cache:
             cache["blocks"] = torch.stack(hfs)
-    else:                                                   # hybrid
+    elif t == "hybrid":
         n_super, n_rem, n_rec = _hybrid_counts(cfg)
         recs, ks, vs = [], [], []
         for sp in unstack(params["super"], n_super):
@@ -266,6 +348,42 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
                 rems.append(st)
             if return_cache:
                 cache["rem"] = torch.stack(rems)
+    elif t == "vlm":
+        per, n_super, n_rem = _vlm_counts(cfg)
+        img = batch["img_emb"].to(x.dtype)
+        ks, vs, cks, cvs = [], [], [], []
+        for sp in unstack(params["super"], n_super):
+            x, k, v, (ck, cv) = run(_vlm_super_block, sp, x, img, cfg, per,
+                                    window=window, attn_impl=attn_impl)
+            if return_cache:
+                ks.append(k)
+                vs.append(v)
+                cks.append(ck)
+                cvs.append(cv)
+        if return_cache:
+            cache["super"] = {"k": torch.stack(ks), "v": torch.stack(vs),
+                              "ck": torch.stack(cks),
+                              "cv": torch.stack(cvs)}
+        if n_rem:
+            for bp in unstack(params["rem"], n_rem):
+                x, _ = _dense_block(bp, x, cfg, window=window,
+                                    attn_impl=attn_impl)
+    else:                                                   # encdec
+        x = _add_positions(x)
+        enc = _add_positions(batch["enc_emb"].to(x.dtype))
+        for bp in unstack(params["enc"], cfg.encoder_layers):
+            enc, _ = run(_dense_block, bp, enc, cfg, causal=False,
+                         attn_impl=attn_impl)
+        enc = L.rms_norm(enc, params["enc_ln"], cfg.norm_eps)
+        caches = []
+        for bp in unstack(params["blocks"], cfg.num_layers):
+            x, (k, v), (ck, cv) = run(_encdec_block, bp, x, enc, cfg,
+                                      attn_impl=attn_impl)
+            if return_cache:
+                caches.append({"k": k, "v": v, "ck": ck, "cv": cv})
+        if return_cache:
+            cache["blocks"] = {key: torch.stack([c[key] for c in caches])
+                               for key in ("k", "v", "ck", "cv")}
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, aux, (cache if return_cache else None)
@@ -299,7 +417,11 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     ring buffers, W = min(window-or-sliding-window, seq_len) (the hybrid's
     attention at its local window), stacked per layer like the params;
     SSD states {"h", "conv"} (ssm), RG-LRU states {"h", "conv"} (hybrid's
-    "rec" and "rem")."""
+    "rec" and "rem"). The vlm's {"super": {"self": {"k","v"}, "ck", "cv"},
+    "rem"} and encdec's {"blocks": {"k", "v", "ck", "cv"}} carry the image
+    / encoder K/V of each cross block as zeros (B, n_img or S_enc, K, hd),
+    which the caller may fill (e.g. from ``forward(return_cache=True)``);
+    decode reads them and never writes them."""
     require_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -311,6 +433,24 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     if t == "ssm":
         return {"blocks": _stacked(S.init_ssm_cache(batch, cfg, device),
                                    (n,))}
+    if t in ("vlm", "encdec"):
+        kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+        zeros = lambda lead, s: torch.zeros(lead + (batch, s, kv, hd),
+                                            dtype=cfg.dtype("compute"),
+                                            device=device)
+        if t == "encdec":
+            one = L.init_attn_cache(batch, cfg, seq_len, None, device=device)
+            return {"blocks": dict(_stacked(one, (n,)),
+                                   ck=zeros((n,), cfg.encoder_seq),
+                                   cv=zeros((n,), cfg.encoder_seq))}
+        per, n_super, n_rem = _vlm_counts(cfg)
+        one = L.init_attn_cache(batch, cfg, seq_len, window, device=device)
+        out = {"super": {"self": _stacked(one, (n_super, per - 1)),
+                         "ck": zeros((n_super,), cfg.num_image_tokens),
+                         "cv": zeros((n_super,), cfg.num_image_tokens)}}
+        if n_rem:
+            out["rem"] = _stacked(one, (n_rem,))
+        return out
     n_super, n_rem, n_rec = _hybrid_counts(cfg)
     rec_one = R.init_rglru_cache(batch, cfg, device)
     attn_one = L.init_attn_cache(batch, cfg, seq_len,
@@ -325,6 +465,22 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 def _layer(cache: dict, *idx) -> dict:
     """One layer's views of a stacked cache (writes land in the stack)."""
     return {k: a[idx] for k, a in cache.items()}
+
+
+def _dense_decode(bp, x, c, pos: int, cfg, window):
+    a, _ = L.attention_decode(bp["attn"],
+                              L.rms_norm(x, bp["ln1"], cfg.norm_eps), c, pos,
+                              cfg, window=window)
+    x = x + a
+    return x + L.mlp_forward(bp["mlp"], L.rms_norm(x, bp["ln2"], cfg.norm_eps),
+                             cfg)
+
+
+def _cross_decode(p, x, ck, cv, pos: int, cfg):
+    """Cross-attention of one decode token over a static K/V cache."""
+    a, _ = L.attention_decode(p, x, None, pos, cfg,
+                              kv_src_cache={"k": ck, "v": cv})
+    return a
 
 
 def _rec_decode(bp, x, c, cfg):
@@ -362,23 +518,48 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
                                 L.rms_norm(x, bp["ln"], cfg.norm_eps),
                                 _layer(cache["blocks"], i), cfg)
             x = x + y
-    else:                                                   # hybrid
+    elif t == "hybrid":
         n_super, n_rem, n_rec = _hybrid_counts(cfg)
         csup = cache["super"]
         for i, sp in enumerate(unstack(params["super"], n_super)):
             for j, bp in enumerate(unstack(sp["rec"], n_rec)):
                 x = _rec_decode(bp, x, _layer(csup["rec"], i, j), cfg)
-            bp = sp["attn"]
-            a, _ = L.attention_decode(
-                bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
-                _layer(csup["attn"], i), pos, cfg,
-                window=cfg.hybrid.local_window)
-            x = x + a
+            x = _dense_decode(sp["attn"], x, _layer(csup["attn"], i), pos,
+                              cfg, cfg.hybrid.local_window)
+        if n_rem:
+            for i, bp in enumerate(unstack(params["rem"], n_rem)):
+                x = _rec_decode(bp, x, _layer(cache["rem"], i), cfg)
+    elif t == "vlm":
+        per, n_super, n_rem = _vlm_counts(cfg)
+        csup = cache["super"]
+        for i, sp in enumerate(unstack(params["super"], n_super)):
+            for j, bp in enumerate(unstack(sp["self"], per - 1)):
+                x = _dense_decode(bp, x, _layer(csup["self"], i, j), pos,
+                                  cfg, window)
+            bp = sp["cross"]
+            x = x + _cross_decode(bp["cross"],
+                                  L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                                  csup["ck"][i], csup["cv"][i], pos, cfg)
             x = x + L.mlp_forward(bp["mlp"],
                                   L.rms_norm(x, bp["ln2"], cfg.norm_eps), cfg)
         if n_rem:
             for i, bp in enumerate(unstack(params["rem"], n_rem)):
-                x = _rec_decode(bp, x, _layer(cache["rem"], i), cfg)
+                x = _dense_decode(bp, x, _layer(cache["rem"], i), pos, cfg,
+                                  window)
+    else:                                                   # encdec
+        # the sinusoid of position 0 at every step, as the reference adds
+        x = x + L.sinusoidal_positions(1, cfg.d_model, x.device).to(x.dtype)
+        for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
+            c = _layer(cache["blocks"], i)
+            a, _ = L.attention_decode(
+                bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps), c, pos,
+                cfg)
+            x = x + a
+            x = x + _cross_decode(bp["cross"],
+                                  L.rms_norm(x, bp["ln2"], cfg.norm_eps),
+                                  c["ck"], c["cv"], pos, cfg)
+            x = x + L.mlp_forward(bp["mlp"],
+                                  L.rms_norm(x, bp["ln3"], cfg.norm_eps), cfg)
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), cache
 

@@ -27,7 +27,13 @@ The MoE and hybrid families' attention shapes: the flash kernel at head
 dim 256 with 10 query heads on one kv head (recurrentgemma-2b's local
 attention, window 2048, keys past it) and both kernels at G = 1
 (qwen2-moe-a2.7b); ``moe_forward`` and the MoE ``paged_decode_step`` on
-the card within 1e-4 of the CPU (fp32).
+the card within 1e-4 of the CPU (fp32). The vlm and encdec families'
+shapes: the flash kernel non-causal over a ragged 1500-frame sequence at
+head dim 64, G = 1 (the Whisper encoder) and causal with 64 query heads
+on 8 kv heads of 128 (llama-3.2-vision); ``make_prefill_step``'s kernel
+arm within 1e-4 of the plain arm for both families (fp32, smoke widths);
+trace replay of smoke lenet through the conv kernels within 1e-4 of the
+CPU's plain arms.
 """
 import dataclasses
 import warnings
@@ -561,3 +567,74 @@ def test_moe_paged_decode_step_on_the_card_matches_the_cpu(card):
             pos.to(card), active.to(card), cfg, attn_impl="cuda")
         assert pa_ops.paged_attention.launches == before + cfg.num_layers
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the vlm and encdec families' shapes, and trace replay
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("what,shape,causal", [
+    ("whisper encoder", (2, 1500, 8, 8, 64), False),
+    ("llama-3.2-vision", (1, 512, 64, 8, 128), True)])
+def test_flash_kernel_vlm_encdec_shapes(card, dtype, tol, what, shape,
+                                        causal):
+    b, s, h, kv, hd = shape
+    g = torch.Generator(device=card).manual_seed(9)
+    q = torch.randn(b, s, h, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(b, s, kv, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(b, s, kv, hd, generator=g, device=card).to(dtype)
+    got = fa_ops.flash_attention(q, k, v, causal=causal).float()
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_vlm_encdec_prefill_step_kernel_arm_matches_plain_arm(card, arch):
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.launch import steps as S
+    from repro_torch.models import transformer as M
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              compute_dtype="float32")
+    params = M.init_params(torch.Generator(device=card).manual_seed(0), cfg)
+    shape = InputShape("p", 24, 2, "prefill")
+    batch = {"tokens": torch.randint(cfg.vocab_size, (2, 24), device=card)}
+    batch.update(S.modality_inputs(cfg, (2,), seed=1, device=card))
+    want = S.make_prefill_step(cfg, shape)(params, batch)
+    before = fa_ops.flash_attention.launches
+    got = S.make_prefill_step(cfg, shape, attn_impl="cuda")(params, batch)
+    attn = (cfg.encoder_layers + cfg.num_layers if cfg.arch_type == "encdec"
+            else cfg.num_layers - cfg.num_layers // cfg.cross_attn_every)
+    assert fa_ops.flash_attention.launches == before + attn
+    for a, b in zip(T.leaves(got), T.leaves(want)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_trace_replay_on_the_card_matches_the_cpu(card):
+    from repro_torch.exec import EventTrace
+    cfgs = {"cuda": C.get_cnn_smoke_config("lenet"),
+            "cpu": dataclasses.replace(C.get_cnn_smoke_config("lenet"),
+                                       conv_impl="lowering")}
+    params = C.init_params(torch.Generator().manual_seed(0), cfgs["cpu"])
+    trace = EventTrace.round_robin(3, 9, "delayed")
+    out = {}
+    for dev, cfg in cfgs.items():
+        eng = Engine(lambda p, b, cfg=cfg: C.loss_fn(p, b, cfg),
+                     strategy="trace-replay", trace=trace, lr=0.05,
+                     momentum=0.3, device=dev,
+                     update_impl="cuda" if dev == "cuda" else "torch")
+        data = P.SyntheticImages(P.DataConfig(
+            batch_size=8, image_size=cfg.image_size,
+            channels=cfg.in_channels, num_classes=cfg.num_classes))
+        before = lc_bwd.wgrad_cuda.launches
+        p, _, losses = eng.run(params, init_momentum(params),
+                               data.batches(9), steps=9)
+        if dev == "cuda":
+            assert lc_bwd.wgrad_cuda.launches == before + 9 * len(cfg.convs)
+        out[dev] = (T.leaves(p), losses)
+    np.testing.assert_allclose(out["cuda"][1], out["cpu"][1], atol=1e-4,
+                               rtol=1e-4)
+    for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)

@@ -211,14 +211,11 @@ def test_init_params_shapes_and_weight_dtype():
                                   "recurrentgemma-2b", "whisper-base",
                                   "llama-3.2-vision-90b"])
 def test_unported_families_raise_naming_roadmap(arch):
-    """The vlm and encdec families raise naming ROADMAP item 11; the
-    moe, ssm and hybrid families give the JAX tree's keys and shapes."""
+    """Every family the JAX package has, the vlm and encdec ones too, gives
+    the JAX tree's keys and shapes (none is refused any longer)."""
     cfg = get_smoke_config(arch)
     gen = torch.Generator().manual_seed(0)
-    if cfg.arch_type in T.UNPORTED:
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 11"):
-            T.init_params(gen, cfg)
-        return
+    assert cfg.arch_type in T.PORTED
     want = jax.eval_shape(lambda k: JT.init_params(k, j_get_smoke_config(
         arch)), jax.random.PRNGKey(0))
     got = T.init_params(gen, cfg)

@@ -12,8 +12,9 @@
   maximum over these ten runs: 1.79e-6 on a loss and 2.62e-5 on a
   parameter, both caffenet-smoke at g=1; every other run stays within
   1.2e-7 and 3.0e-8.
-- the engine's and launcher's refusals (the unported strategy and flag,
-  the ``delayed`` strategy's missing per-round step,
+- the engine's and launcher's refusals (trace replay without a trace,
+  fused replay of a trace without run structure, the ``delayed``
+  strategy's missing per-round step,
   the group mesh without a process group or with too few ranks, kernel
   arms on the CPU) and the launcher on the CPU. The SPMD engine and the
   launcher across ranks are ``test_torch_spmd*.py``'s.
@@ -176,8 +177,13 @@ def test_engine_refusals():
     with pytest.raises(ValueError, match="no per-round step"):
         Engine(loss_fn, strategy="delayed", device="cpu",
                update_impl="torch").step({}, {}, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_strategy("trace-replay")
+    # trace replay is run-level and needs the trace it executes
+    replay = get_strategy("trace-replay")
+    assert not replay.supports_step and not replay.supports_runner
+    with pytest.raises(ValueError, match="needs Engine\\(trace"):
+        Engine(loss_fn, strategy="trace-replay", device="cpu",
+               update_impl="torch").run({}, {}, [{"x": np.zeros(2)}],
+                                        steps=1)
     with pytest.raises(ValueError, match="pinned to g=1"):
         Engine(loss_fn, strategy="sync", num_groups=2, device="cpu",
                update_impl="torch")
@@ -187,7 +193,7 @@ def test_engine_refusals():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             Engine(loss_fn)                            # device="cuda"
     assert list_strategies() == ("delayed", "grouped-fused", "grouped-scan",
-                                 "sync")
+                                 "sync", "trace-replay")
 
 
 def _env():
@@ -214,15 +220,22 @@ def test_launcher_trains_smoke_lenet_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--arch", "qwen2-moe-a2.7b"], "applies to CNN archs"),
-    (["--replay-trace", "t.npz"], "item 13"),
+    # the case that refused --replay-trace before replay was ported keeps
+    # its id; fused replay refuses the per-commit reads of a queue trace
+    pytest.param(["--replay-trace", "t.npz", "--replay-impl", "fused"],
+                 "equal-read-run", id="extra1-item 13"),
     (["--exec-mode", "spmd"], "initialized process group"),
     (["--mp", "2"], "needs >= 2 ranks"),
     (["--conv-impl", "lowering_cuda", "--update-impl", "torch"],
      "needs CUDA tensors")])
-def test_launcher_refusals(extra, match):
+def test_launcher_refusals(extra, match, tmp_path, monkeypatch):
+    from repro_torch.core import queue_sim
     from repro_torch.launch import train
+    monkeypatch.chdir(tmp_path)
+    queue_sim.simulate(g=3, t_conv=1.0, t_fc=0.1, iters=8, seed=1,
+                       return_trace=True)[1].save("t.npz")
     argv = ["--arch", "lenet", "--smoke", "--device", "cpu", "--conv-impl",
-            "lowering", "--update-impl", "torch", "--steps", "1"]
+            "lowering", "--update-impl", "torch", "--steps", "4"]
     with pytest.raises((NotImplementedError, ValueError, RuntimeError),
                        match=match):
         train.main(argv + extra)
