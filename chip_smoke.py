@@ -180,7 +180,29 @@ passed over, nothing falls back to the CPU):
    and checked after each run (per commit: lowering_conv 5, wgrad 5,
    dgrad 4, no fused update), every loss finite; then the ``queue_sim``
    replay profiled (``Engine.replay`` on the batches already on the
-   card).
+   card);
+17. the conv-tile autotuner at full CaffeNet width, group batch 64: (a)
+   every candidate tile of B2, B3 and B4 (``autotune.tile_candidates``:
+   widths 64 and 96, wgrad's block targets) at the five layers against
+   the plain versions at phase 7's limits (dgrad at layers 2-5), the
+   residual bitwise; (b) ``lowering_conv.smem_bytes`` equal to each
+   compiled kernel's ``<kernel>_smem_bytes`` for every pass and width;
+   (c) ``models.cnn.autotune_conv_tiles(CAFFENET, 64)`` under a span
+   tracer: each candidate's time, each layer's winner beside
+   ``DEFAULT_TILES``, the probe's wall time; ``DEFAULT_TILES`` equal to
+   the fixed rule recomputed here and bitwise the launches that leave the
+   tiles out; each kernel over one group's five layers at the chosen and
+   the default tiles; (d) ``launch/train.main`` on caffenet (batch 256,
+   g = 4, 5 rounds, the tile cache empty) with ``--trace-out`` and
+   ``--metrics-out``: the launcher probes, then trains; its launch counts
+   (the rounds' and the probes', which the trace's candidate spans
+   count) checked, the trace passing ``obs.validate`` with the autotune
+   and engine spans, its round's ms beside phase 8's; then
+   ``launch/params_util`` counts from meta params for every arch at full
+   size, and the bytes reckoned for the runs phases 12, 14 and 15
+   measured, beside their peaks (readings). Phase 13's launcher run finds
+   its tiles probed before it, outside its counted run; every other phase
+   runs the default tiles (the cache is emptied after phases 13 and 17).
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -216,6 +238,9 @@ RG_WINDOW = 2048
 WHISPER_FLASH = (8, 8, 8, 64)  # whisper-base, 8 x 30 s audio: (B, H, K, hd)
 VISION_FLASH = (4, 64, 8, 128)  # llama-3.2-vision-90b prefill, 4 x 512
 SPIN_CYCLES = 20_000_000       # ~10 ms at the H100's clock: covers any enqueue
+
+#: peak device memory of the runs phase 17 reckons, by their log tags
+PEAKS: dict = {}
 
 CNN_GROUP_BATCH = 64           # CaffeNet batch 256 over g = 4 groups
 CNN_BATCH, CNN_GROUPS = 256, 4
@@ -1668,7 +1693,7 @@ def phase_lm_train(torch, cfg, host, mom, n_params, *,
         fail(f"LM g={g} run: launch counts {got} != {want}")
     if len(losses) != rounds or not all(math.isfinite(x) for x in losses):
         fail(f"LM g={g} run: losses {losses}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = PEAKS[tag] = torch.cuda.max_memory_allocated()
     tel = eng.telemetry
     steady = tel.step_s[tel.skip:]
     med = statistics.median(steady)
@@ -1961,6 +1986,7 @@ def phase_opt_plan(torch, h100) -> tuple:
     from repro_torch.core import tree as T
     from repro_torch.kernels.fused_update import ops as fu
     from repro_torch.kernels.fused_update.ref import fused_update_ref
+    from repro_torch.kernels.lowering_conv import autotune
     from repro_torch.launch import train as TR
     from repro_torch.models import cnn as C
     from repro_torch.obs.metrics import MetricRegistry
@@ -1979,6 +2005,10 @@ def phase_opt_plan(torch, h100) -> tuple:
     argv = ["--arch", "caffenet", "--batch", str(CNN_BATCH), "--steps",
             str(OPT_ROUNDS), "--lr", "0.01", "--momentum", "0.3",
             "--cluster-spec", OPT_SPEC, "--plan"]
+    # the launcher autotunes the conv tiles before its engine (at batch
+    # 256: --plan leaves --groups at 1); probed here, outside the counted
+    # run, its own probe finds them cached and launches nothing
+    C.autotune_conv_tiles(cfg, CNN_BATCH)
     with tempfile.TemporaryDirectory() as tmp:
         sink = str(Path(tmp) / "planned.jsonl")
         t0 = time.perf_counter()
@@ -1986,6 +2016,7 @@ def phase_opt_plan(torch, h100) -> tuple:
             argv + ["--metrics-out", sink]))
         wall = time.perf_counter() - t0
         reg, _ = MetricRegistry.from_jsonl(sink)
+    autotune.clear_tile_cache()    # later phases run the default tiles
     want = _want_rounds(g, OPT_ROUNDS)
     log(f"[opt:plan] launch/train.py {' '.join(argv)}: {len(losses)} rounds "
         f"in {wall:.1f} s, launches {got} (want {want})")
@@ -2584,8 +2615,8 @@ def phase_vision(torch) -> dict:
                   "vlm:b")
     _profile_decode(torch, cfg, params, cache, bs, p + n - 1,
                     "image K/V filled")
-    log(f"[vlm:b] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
-        "GB")
+    PEAKS["vlm:b"] = torch.cuda.max_memory_allocated()
+    log(f"[vlm:b] peak memory {PEAKS['vlm:b'] / 1e9:.2f} GB")
     del cache, params
     _free(torch)
     small = dataclasses.replace(cfg, num_layers=VISION_PARITY_LAYERS)
@@ -2718,6 +2749,282 @@ def phase_replay(torch) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the conv-tile autotuner
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_ROUNDS = 5            # the launcher's run in (d), the first a warm-up
+
+
+def _todays_tiles(w_shape):
+    """The fixed rule the kernels ran before the autotuner, recomputed here
+    from its definition (the forward's C entry took 96 output channels
+    where they pad no more than 64 do; wgrad and dgrad the same rule on
+    Cout and Cin; wgrad aimed at six blocks an SM of 132)."""
+    from repro_torch.kernels.lowering_conv import bwd
+
+    def width(c):
+        return 96 if math.ceil(c / 96) * 96 <= math.ceil(c / 64) * 64 else 64
+    return bwd.ConvTiles(width(w_shape[3]), width(w_shape[3]), 6 * 132,
+                         width(w_shape[2]))
+
+
+def phase_autotune_check(torch) -> dict:
+    """(a) every candidate tile of B2, B3 and B4 at CaffeNet's five layers
+    at group batch 64 against the plain versions (dgrad at layers 2-5, the
+    ones the path runs it at), the forward's residual bitwise; (b) the
+    footprint model against each compiled kernel's own figure. -> the
+    largest errors."""
+    from repro_torch.kernels.lowering_conv import autotune, bwd
+    from repro_torch.kernels.lowering_conv import lowering_conv as lc
+    from repro_torch.kernels.lowering_conv.ref import lower
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(17)
+    errs = dict.fromkeys(("lowering_conv", "wgrad", "dgrad"), 0.0)
+    n = 0
+    for i, (xs, ws, s) in enumerate(caffenet_layers()):
+        kh, kw, cin, cout = ws
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        low_ref = lower(x, kh, kw, s)
+        y_ref = (low_ref @ w.reshape(kh * kw * cin, cout))
+        dflt = autotune.DEFAULT_TILES(ws)
+        cands = autotune.tile_candidates(xs, ws, s, device=dev)
+        tag = f"conv{i + 1} x{xs} w{ws} s{s}"
+        for bn in cands["fwd"]:
+            t = dataclasses.replace(dflt, fwd_bn=bn)
+            y, low = lc.lowering_conv_cuda(x, w, stride=s,
+                                           return_lowered=True, tiles=t)
+            errs["lowering_conv"] = max(errs["lowering_conv"], compare_fp32(
+                torch, f"lowering_conv {tag} BN {bn}", y,
+                y_ref.reshape(y.shape)))
+            if not torch.equal(low.reshape(low_ref.shape), low_ref):
+                fail(f"lowering_conv {tag} BN {bn}: the residual differs "
+                     "from ref.lower")
+            n += 1
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        del y, y_ref
+        dw_ref = bwd.wgrad_ref(low_ref, dy, ws)
+        for bn, blocks in cands["wgrad"]:
+            t = dataclasses.replace(dflt, wgrad_bn=bn, wgrad_blocks=blocks)
+            rows, slices = bwd.wgrad_slices(low_ref.shape[0], low.shape[-1],
+                                            cout, bn, blocks)
+            errs["wgrad"] = max(errs["wgrad"], compare_fp32(
+                torch, f"wgrad {tag} BN {bn} blocks {blocks} ({slices} "
+                f"slices of {rows} rows)",
+                bwd.wgrad_cuda(low, dy, ws, tiles=t), dw_ref))
+            n += 1
+        del dw_ref, low, low_ref
+        if i > 0:                      # conv1 has needs_dgrad=False
+            dx_ref = bwd.dgrad_ref(dy, w, xs, s)
+            for bn in cands["dgrad"]:
+                t = dataclasses.replace(dflt, dgrad_bn=bn)
+                errs["dgrad"] = max(errs["dgrad"], compare_fp32(
+                    torch, f"dgrad {tag} BN {bn}",
+                    bwd.dgrad_cuda(dy, w, xs, stride=s, tiles=t), dx_ref))
+                n += 1
+            del dx_ref
+        del x, w, dy
+        _free(torch)
+    log(f"[autotune:a] {n} candidate tiles of B2-B4 at CaffeNet's five "
+        "layers, group batch 64: every one within the plain versions' "
+        "limits ok")
+    for pass_ in ("fwd", "wgrad", "dgrad"):
+        for bn in lc.DGRAD_BLOCK_N:
+            model = lc.smem_bytes(pass_=pass_, block_n=bn)
+            built = lc.kernel_smem_bytes(pass_, bn)
+            if built != model:
+                fail(f"smem_bytes {pass_} BN {bn}: the model says {model}, "
+                     f"the compiled kernel {built}")
+            log(f"[autotune:b] {pass_} BN {bn}: {model} bytes of shared "
+                f"memory a block, the kernel's own figure {built} ok")
+    return errs
+
+
+def phase_autotune_probe(torch) -> None:
+    """(c) ``autotune_conv_tiles(CAFFENET, 64)`` under a span tracer: each
+    candidate's time, each layer's winner beside ``DEFAULT_TILES``, the
+    probe's wall time; ``DEFAULT_TILES`` equal to today's rule recomputed
+    and bitwise its launches; each kernel summed over one group's five
+    layers at the chosen and at the default tiles (CUDA events, L2
+    flushed)."""
+    from repro_torch.kernels.lowering_conv import autotune, bwd
+    from repro_torch.kernels.lowering_conv import lowering_conv as lc
+    from repro_torch.models import cnn as C
+    from repro_torch.obs import spans
+    dev = torch.device("cuda")
+    autotune.clear_tile_cache()
+    tracer = spans.Tracer()
+    t0 = time.perf_counter()
+    with spans.install(tracer):
+        tiles = C.autotune_conv_tiles(C.CAFFENET, CNN_GROUP_BATCH)
+    wall = time.perf_counter() - t0
+    recs = tracer.records()
+    layers = caffenet_layers()
+    n_cand = 0
+    for i, outer in enumerate(r for r in recs
+                              if r.name == "autotune.conv_tiles"):
+        for c in recs:
+            if c.name == "autotune.candidate" and c.parent == outer.index:
+                a = c.attrs
+                log(f"[autotune:c] conv{i + 1} {a['pass_']} BN "
+                    f"{a['block_n']}" + (f" blocks {a['wgrad_blocks']}"
+                                         if a["wgrad_blocks"] else "")
+                    + f": {a['min_us']:.1f} us (host clock, min of 5)")
+                n_cand += 1
+        log(f"[autotune:c] conv{i + 1}: chosen {tiles[i]}, default "
+            f"{autotune.DEFAULT_TILES(layers[i][1])}")
+    log(f"[autotune:c] probe of {n_cand} candidates at CaffeNet's five "
+        f"layers, group batch {CNN_GROUP_BATCH}: {wall:.2f} s wall")
+    g = torch.Generator(device=dev).manual_seed(18)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    tot = {k: {"chosen": 0.0, "default": 0.0}
+           for k in lc.PASS_KERNELS.values()}
+    for i, (xs, ws, s) in enumerate(layers):
+        dflt = autotune.DEFAULT_TILES(ws)
+        if dflt != _todays_tiles(ws):
+            fail(f"conv{i + 1}: DEFAULT_TILES {dflt} is not today's rule "
+                 f"{_todays_tiles(ws)}")
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        y, low = lc.lowering_conv_cuda(x, w, stride=s, return_lowered=True)
+        dy = torch.randn(y.shape, generator=g, device=dev)
+        calls = {
+            "lowering_conv": lambda t: lc.lowering_conv_cuda(
+                x, w, stride=s, return_lowered=True, tiles=t),
+            "wgrad": lambda t: bwd.wgrad_cuda(low, dy, ws, tiles=t),
+            "dgrad": lambda t: bwd.dgrad_cuda(dy, w, xs, stride=s, tiles=t)}
+        for name, fn in calls.items():
+            if name == "dgrad" and i == 0:
+                continue
+            a, b = fn(None), fn(dflt)
+            same = all(torch.equal(u, v) for u, v in zip(
+                a if isinstance(a, tuple) else (a,),
+                b if isinstance(b, tuple) else (b,)))
+            if not same:
+                fail(f"{name} conv{i + 1}: DEFAULT_TILES launch differs from "
+                     "the launch that leaves the tiles out")
+            for which, t in (("chosen", tiles[i]), ("default", dflt)):
+                tot[name][which] += cuda_ms(torch, lambda: fn(t), iters=10,
+                                            flush=flush)
+        del x, w, y, low, dy
+    log("[autotune:c] DEFAULT_TILES is today's rule at all five layers and "
+        "bitwise the launches that leave the tiles out ok")
+    for name, t in tot.items():
+        log(f"[autotune:c] {name} summed over one group's layers (batch "
+            f"{CNN_GROUP_BATCH}): chosen tiles {t['chosen']:.4f} ms, default "
+            f"tiles {t['default']:.4f} ms")
+    del flush
+    _free(torch)
+
+
+def phase_autotune_launch(torch, run_ips: float) -> dict:
+    """(d) ``launch/train.main`` on caffenet, batch 256, g = 4,
+    ``AUTOTUNE_ROUNDS`` rounds, with ``--trace-out`` and ``--metrics-out``
+    into a temporary directory and the tile cache empty: the launcher
+    probes (counted: the candidate spans say how many launches each
+    probe made) and trains; the trace passes ``obs.validate`` with the
+    autotune and engine spans; its round's ms beside phase 8's at the
+    default tiles. -> the launch counts."""
+    import json
+    import tempfile
+    from repro_torch.kernels.lowering_conv import autotune
+    from repro_torch.kernels.lowering_conv.lowering_conv import PASS_KERNELS
+    from repro_torch.launch import train as TR
+    from repro_torch.obs import validate
+    from repro_torch.obs.metrics import MetricRegistry
+    autotune.clear_tile_cache()
+    argv = ["--arch", "caffenet", "--batch", str(CNN_BATCH), "--groups",
+            str(CNN_GROUPS), "--steps", str(AUTOTUNE_ROUNDS), "--lr", "0.01",
+            "--momentum", "0.3"]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace, sink = str(Path(tmp) / "t.json"), str(Path(tmp) / "m.jsonl")
+        t0 = time.perf_counter()
+        losses, got = _counted(torch, lambda: TR.main(
+            argv + ["--trace-out", trace, "--metrics-out", sink]))
+        wall = time.perf_counter() - t0
+        bad = validate.check_trace(trace, [
+            "autotune.conv_tiles", "autotune.candidate", "engine.run",
+            "engine.step", "engine.block_until_ready"]) + \
+            validate.check_metrics(sink, ["step_s", "data_wait_s"])
+        if bad:
+            fail(f"launcher trace/metrics: {bad}")
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+        reg, _ = MetricRegistry.from_jsonl(sink)
+    probes = dict.fromkeys(PASS_KERNELS.values(), 0)
+    for e in events:
+        if e.get("name") == "autotune.candidate":
+            probes[PASS_KERNELS[e["args"]["pass_"]]] += e["args"]["launches"]
+    want = _want_rounds(CNN_GROUPS, AUTOTUNE_ROUNDS)
+    for k, n in probes.items():
+        want[k] += n
+    log(f"[autotune:d] launch/train.py {' '.join(argv)} --trace-out "
+        f"--metrics-out: {len(losses)} rounds in {wall:.1f} s; launches "
+        f"{got} (want {want}: the rounds' and the probes' {probes}); trace "
+        f"and metrics valid ({len(events)} trace events) ok")
+    if got != want:
+        fail(f"autotuned launcher run: launch counts {got} != {want}")
+    if len(losses) != AUTOTUNE_ROUNDS or not all(math.isfinite(x)
+                                                 for x in losses):
+        fail(f"autotuned launcher run: losses {losses}")
+    steady = reg.series("step_s").values[1:]
+    med = statistics.median(steady)
+    log(f"[autotune:d] round at the autotuned tiles: median "
+        f"{med * 1e3:.1f} ms (host clock, rounds 2-{AUTOTUNE_ROUNDS}; min "
+        f"{min(steady) * 1e3:.1f} max {max(steady) * 1e3:.1f}), "
+        f"{CNN_BATCH / med:.1f} images/s; phase 8 at the default tiles "
+        f"{CNN_BATCH / run_ips * 1e3:.1f} ms, {run_ips:.1f} images/s")
+    autotune.clear_tile_cache()
+    _free(torch)
+    return got
+
+
+def phase_reckon(torch) -> None:
+    """Parameter counts from meta params (``launch/steps.params_specs``)
+    for every arch at full size, and the bytes reckoned for the runs whose
+    peaks phases 12, 14 and 15 measured: (4 + g)·P·4 B for training at
+    g = 4 (fp32 params and momentum in and out, g gradient stacks), the
+    bf16 weights for the llama-3.2-vision serving run. Readings, not a
+    check."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch import params_util as PU
+    from repro_torch.launch import steps as S
+    for arch in list_archs():
+        cfg = get_config(arch)
+        spec = S.params_specs(cfg)
+        log(f"[reckon] {arch}: param_count {PU.param_count(spec)}, "
+            f"param_bytes {PU.param_bytes(spec)} ({cfg.param_dtype}), "
+            f"active_param_count {PU.active_param_count(spec, cfg)}")
+    for tag, arch, layers, what in (
+            ("lm:a", "qwen2-7b", LM_LAYERS, "train"),
+            ("train:moe", "qwen2-moe-a2.7b", 2, "train"),
+            ("vlm:b", "llama-3.2-vision-90b", VISION_LAYERS, "serve")):
+        cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+        p = PU.param_count(S.params_specs(cfg))
+        if what == "train":
+            model = f"(4 + {LM_GROUPS}) x P x 4 B = " \
+                    f"{(4 + LM_GROUPS) * p * 4 / 1e9:.2f} GB"
+        else:
+            model = f"bf16 weights P x 2 B = {p * 2 / 1e9:.2f} GB"
+        peak = PEAKS.get(tag)
+        log(f"[reckon] {arch} at {layers} layers ({tag}): P = {p}, {model}; "
+            f"measured peak " + (f"{peak / 1e9:.2f} GB" if peak is not None
+                                 else "not measured in this run"))
+
+
+def phase_autotune(torch, run_ips: float) -> tuple:
+    """Phase 17: (a)-(d) and the reckoned bytes. -> (launch counts of the
+    launcher's run, the largest kernel errors)."""
+    t0 = time.perf_counter()
+    errs = phase_autotune_check(torch)
+    phase_autotune_probe(torch)
+    got = phase_autotune_launch(torch, run_ips)
+    phase_reckon(torch)
+    log(f"[autotune] phase 17 in {time.perf_counter() - t0:.1f} s")
+    return got, errs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -2783,6 +3090,11 @@ def main(argv=None) -> None:
     for name, n in phase_replay(torch).items():
         launches[name] += n
     log(f"[replay] phase 16 in {time.perf_counter() - t0:.1f} s")
+    tuned, tuned_errs = phase_autotune(torch, run_ips)
+    for name, n in tuned.items():
+        launches[name] += n
+    for name, e in tuned_errs.items():
+        errs[name] = max(errs[name], e)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

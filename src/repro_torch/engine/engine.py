@@ -404,8 +404,9 @@ class Engine:
                 with tracer.span("engine.step", step=i, mode=built.mode):
                     with tracer.span("engine.dispatch"):
                         params, mom, loss = built(params, mom, batch)
-                    with tracer.span("engine.sync"):
-                        # step wall ends in this read
+                    # the JAX span's name (docs/observability.md): the
+                    # step wall ends in this synchronizing loss read
+                    with tracer.span("engine.block_until_ready"):
                         losses.append(self._record_losses(built, loss))
                 t_done = timing.monotonic()
                 self.telemetry.record(step_s=t_done - t_ready,

@@ -39,6 +39,14 @@ class TimeStats:
     iqr_s: float
     iters: int
 
+    def row(self, scale: float = 1e6) -> dict:
+        """JSON-friendly dict, every timing emitter's row (default unit:
+        microseconds)."""
+        return {"min_us": self.min_s * scale,
+                "median_us": self.median_s * scale,
+                "iqr_us": self.iqr_s * scale,
+                "iters": self.iters}
+
 
 def stats_of(samples: Sequence[float]) -> TimeStats:
     if not samples:

@@ -17,29 +17,64 @@ slices of the M rows, then a sum in slice order) and ``dgrad_cuda``
 the fly; no dCols, no col2im pass).
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version. Each wrapper call adds one to its ``launches``.
+
+``ConvTiles`` holds the three kernels' tiles (the forward's, wgrad's and
+dgrad's widths, and the number of blocks wgrad's split over M aims at);
+``default_tiles`` is the fixed rule every layer ran before the autotuner
+(``autotune``) and still runs unless it was probed.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.lowering_conv.lowering_conv import (check_operands,
-                                                             out_hw)
+from repro_torch.kernels.lowering_conv.lowering_conv import (
+    DGRAD_BLOCK_N, check_operands, dgrad_block_n, out_hw)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``wgrad_launch``'s C signature, in order
 WGRAD_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
 #: ``dgrad_launch``'s C signature, in order
 DGRAD_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
-DGRAD_BLOCK_N = (64, 96)       # tile widths in channels (dgrad Cin, wgrad Cout)
 
 WGRAD_TILE_K = 64              # rows of dW (K) per wgrad block
 WGRAD_STAGE_ROWS = 32          # reduction rows of one wgrad stage
 WGRAD_MAX_SLICE_ROWS = 2048    # rows one block sums in order (fp32 error)
 WGRAD_TARGET_BLOCKS = 6 * 132  # six blocks per SM of an H100
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTiles:
+    """The tiles of one layer's three kernels: the forward's width in
+    output channels (B2), wgrad's width in output channels and the blocks
+    its split over M aims at (B3; the slices are derived from M at each
+    call, ``wgrad_slices``), dgrad's width in input channels (B4)."""
+    fwd_bn: int
+    wgrad_bn: int
+    wgrad_blocks: int
+    dgrad_bn: int
+
+    def __post_init__(self):
+        for name in ("fwd_bn", "wgrad_bn", "dgrad_bn"):
+            if getattr(self, name) not in DGRAD_BLOCK_N:
+                raise ValueError(f"{name}={getattr(self, name)}: the kernels "
+                                 f"are built for widths {DGRAD_BLOCK_N}")
+        if self.wgrad_blocks < 1:
+            raise ValueError(f"wgrad_blocks={self.wgrad_blocks} < 1")
+
+
+def default_tiles(w_shape) -> ConvTiles:
+    """The fixed rule for kernel shape (kh, kw, Cin, Cout): each width the
+    one that pads its channels least (``dgrad_block_n``), wgrad aiming at
+    ``WGRAD_TARGET_BLOCKS``."""
+    bn_out = dgrad_block_n(w_shape[3])
+    return ConvTiles(fwd_bn=bn_out, wgrad_bn=bn_out,
+                     wgrad_blocks=WGRAD_TARGET_BLOCKS,
+                     dgrad_bn=dgrad_block_n(w_shape[2]))
 
 
 # ---------------------------------------------------------------------------
@@ -93,25 +128,29 @@ def dgrad_ref(dy: torch.Tensor, w: torch.Tensor, x_shape,
 # kernels
 # ---------------------------------------------------------------------------
 
-def wgrad_slices(m: int, k: int, cout: int):
+def wgrad_slices(m: int, k: int, cout: int, block_n: int = None,
+                 target_blocks: int = WGRAD_TARGET_BLOCKS):
     """(slice_rows, slices) of the split over the M rows: about
-    ``WGRAD_TARGET_BLOCKS`` blocks over the dW tiles (64 x
+    ``target_blocks`` blocks over the dW tiles (64 x ``block_n``, default
     ``dgrad_block_n(cout)``), at most ``WGRAD_MAX_SLICE_ROWS`` rows summed
-    in order by any one block, slices a whole number of 32-row stages.
-    Depends on the shapes only, so a run gives the same bits as the last
-    one."""
-    tiles = (math.ceil(k / WGRAD_TILE_K)
-             * math.ceil(cout / dgrad_block_n(cout)))
+    in order by any one block (an fp32 accuracy bound, whatever the tiles),
+    slices a whole number of 32-row stages. Depends on the shapes and tiles
+    only, so a run gives the same bits as the last one."""
+    block_n = dgrad_block_n(cout) if block_n is None else block_n
+    tiles = math.ceil(k / WGRAD_TILE_K) * math.ceil(cout / block_n)
     s = max(math.ceil(m / WGRAD_MAX_SLICE_ROWS),
-            math.ceil(WGRAD_TARGET_BLOCKS / tiles))
+            math.ceil(target_blocks / tiles))
     s = min(s, math.ceil(m / WGRAD_STAGE_ROWS))
     rows = math.ceil(math.ceil(m / s) / WGRAD_STAGE_ROWS) * WGRAD_STAGE_ROWS
     return rows, math.ceil(m / rows)
 
 
-def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
+def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape, *,
+               tiles: ConvTiles = None) -> torch.Tensor:
     """lowered: (B, Ho, Wo, kh*kw*Cin) forward residual (or (M, K));
-    dy: (B, Ho, Wo, Cout). Returns dW (kh, kw, Cin, Cout) in fp32."""
+    dy: (B, Ho, Wo, Cout). Returns dW (kh, kw, Cin, Cout) in fp32, split
+    over M by ``tiles`` (``wgrad_bn``, ``wgrad_blocks``; default
+    ``default_tiles(kshape)``)."""
     kh, kw, cin, cout = kshape
     K = kh * kw * cin
     if lowered.shape[-1] != K or dy.shape[-1] != cout:
@@ -123,14 +162,15 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
     if lowered.device.type != "cuda":
         return wgrad_ref(lowered, dy, kshape)
     check_operands(lowered=lowered, dy=dy)
-    rows, slices = wgrad_slices(m, K, cout)
+    t = default_tiles(kshape) if tiles is None else tiles
+    rows, slices = wgrad_slices(m, K, cout, t.wgrad_bn, t.wgrad_blocks)
     part = torch.empty((slices, K, cout), dtype=torch.float32,
                        device=lowered.device)
     dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
                      device=lowered.device)
     err = _build.launcher("wgrad", WGRAD_ARGTYPES)(
         lowered.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), m,
-        K, cout, rows, slices, dgrad_block_n(cout),
+        K, cout, rows, slices, t.wgrad_bn,
         lowered.device.index or 0,
         torch.cuda.current_stream(lowered.device).cuda_stream)
     _build.check(err, "wgrad")
@@ -141,19 +181,12 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape) -> torch.Tensor:
 wgrad_cuda.launches = 0
 
 
-def dgrad_block_n(c: int) -> int:
-    """A tile's width in channels (dgrad: input channels; wgrad: output
-    channels): the one of ``DGRAD_BLOCK_N`` that pads c least, the wider on
-    a tie (96 channels fill one tile; 256 take four of 64, 384 four of
-    96)."""
-    return min(DGRAD_BLOCK_N, key=lambda n: (math.ceil(c / n) * n, -n))
-
-
 def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
-               stride: int = 1) -> torch.Tensor:
+               stride: int = 1, tiles: ConvTiles = None) -> torch.Tensor:
     """dy: (B, Ho, Wo, Cout); w: (kh, kw, Cin, Cout). Returns dX of
     ``x_shape`` (B, H, W, Cin) in fp32, written once by the kernel (no
-    scratch)."""
+    scratch), in tiles ``tiles.dgrad_bn`` input channels wide (default
+    ``dgrad_block_n(Cin)``)."""
     b, h, wd, cin = x_shape
     kh, kw, cin_w, cout = w.shape
     ho, wo = out_hw(h, wd, kh, kw, stride)
@@ -166,7 +199,9 @@ def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
     dx = torch.empty(tuple(x_shape), dtype=torch.float32, device=dy.device)
     err = _build.launcher("dgrad", DGRAD_ARGTYPES)(
         dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, h, wd, cin, kh, kw,
-        stride, cout, dgrad_block_n(cin), dy.device.index or 0,
+        stride, cout,
+        dgrad_block_n(cin) if tiles is None else tiles.dgrad_bn,
+        dy.device.index or 0,
         torch.cuda.current_stream(dy.device).cuda_stream)
     _build.check(err, "dgrad")
     dgrad_cuda.launches += 1

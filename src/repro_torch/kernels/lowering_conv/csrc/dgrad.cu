@@ -244,6 +244,13 @@ cudaError_t launch(const float* dy, const float* w, float* dx, int B, int H, int
 
 }  // namespace
 
+// The dynamic shared memory one block asks for at tile width block_n (64 or
+// 96 input channels), -1 for any other width: the footprint model
+// (lowering_conv.smem_bytes) is held to it on the card.
+extern "C" int dgrad_smem_bytes(int block_n) {
+  return block_n == 96 ? smem_bytes<96>() : block_n == 64 ? smem_bytes<64>() : -1;
+}
+
 // dy: (B, Ho, Wo, Cout), w: (kh, kw, Cin, Cout), dx: (B, H, W, Cin); all
 // fp32 and contiguous; VALID padding. block_n (64 or 96) is the tile's
 // width in input channels. Returns cudaGetLastError() after the launch.

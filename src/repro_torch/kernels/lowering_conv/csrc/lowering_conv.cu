@@ -26,10 +26,10 @@
 //
 // Design (the dgrad kernel's machinery: common/ptx.cuh and dgrad.cu's tiles).
 // One block of 4 warps per 64 x BN tile of y, each warp a 32 x BN/2 tile of
-// mma.sync m16n8k8 TF32 products; the entry point picks BN (64 or 96 output
-// channels) so that Cout pads least (conv1's 96 fill one tile, 256 take
-// 4 x 64, 384 take 4 x 96). Each block owns its y tile: no atomics, the
-// same bits every run.
+// mma.sync m16n8k8 TF32 products; the caller gives BN (64 or 96 output
+// channels): by default the one that pads Cout least (conv1's 96 fill one
+// tile, 256 take 4 x 64, 384 take 4 x 96), or the tile autotuner's pick.
+// Each block owns its y tile: no atomics, the same bits every run.
 // K is walked in stages of 32 columns, in the lowered matrix's own order
 // (taps (i, j) outer, channels inner), through a 3-stage cp.async ring: the
 // A stage (64 pixels x 32 columns) is gathered straight from x, each thread
@@ -286,13 +286,20 @@ cudaError_t dispatch_vec(bool avec, bool bvec, const float* x, const float* w, f
 
 }  // namespace
 
+// The dynamic shared memory one block asks for at tile width block_n (64 or
+// 96 output channels), -1 for any other width: the footprint model
+// (lowering_conv.smem_bytes) is held to it on the card.
+extern "C" int lowering_conv_smem_bytes(int block_n) {
+  return block_n == 96 ? smem_bytes<96>() : block_n == 64 ? smem_bytes<64>() : -1;
+}
+
 // x: (B, H, W, Cin), w: (kh, kw, Cin, Cout), y: (B, Ho, Wo, Cout), all fp32
 // and contiguous; lowered: (B, Ho, Wo, kh*kw*Cin) or null. VALID padding.
-// The tile's width (64 or 96 output channels) is the one that pads Cout
-// least, the wider on a tie. Returns cudaGetLastError() after the launch.
+// block_n (64 or 96; any other width is refused) is the tile's width in
+// output channels. Returns cudaGetLastError() after the launch.
 extern "C" int lowering_conv_launch(const void* x, const void* w, void* y, void* lowered, int B,
                                     int H, int W, int Cin, int kh, int kw, int stride, int Cout,
-                                    int device, void* stream) {
+                                    int block_n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (stride < 1 || kh > H || kw > W || B < 1 || Cin < 1 || Cout < 1)
@@ -311,13 +318,13 @@ extern "C" int lowering_conv_launch(const void* x, const void* w, void* y, void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool avec = Cin % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
   const bool bvec = Cout % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
-  const int pad64 = (Cout + 63) / 64 * 64;
-  const int pad96 = (Cout + 95) / 96 * 96;
-  if (pad96 <= pad64)
+  if (block_n == 96)
     err = dispatch_vec<96>(avec, bvec, xf, wf, yf, low, B, H, W, Cin, kh, kw, stride, Ho, Wo,
                            Cout, s);
-  else
+  else if (block_n == 64)
     err = dispatch_vec<64>(avec, bvec, xf, wf, yf, low, B, H, W, Cin, kh, kw, stride, Ho, Wo,
                            Cout, s);
+  else
+    err = cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

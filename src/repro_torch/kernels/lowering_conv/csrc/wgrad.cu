@@ -229,6 +229,13 @@ cudaError_t dispatch_vec(bool avec, bool bvec, const float* low, const float* dy
 
 }  // namespace
 
+// The dynamic shared memory one block asks for at tile width block_n (64 or
+// 96 output channels), -1 for any other width: the footprint model
+// (lowering_conv.smem_bytes) is held to it on the card.
+extern "C" int wgrad_smem_bytes(int block_n) {
+  return block_n == 96 ? smem_bytes<96>() : block_n == 64 ? smem_bytes<64>() : -1;
+}
+
 // lowered: (M, K), dy: (M, Cout), partial: (slices, K, Cout) scratch,
 // dw: (K, Cout); all fp32 and contiguous.
 // slices * slice_rows >= M > (slices - 1) * slice_rows, slice_rows % 32 == 0;

@@ -58,30 +58,32 @@ class _LoweringConvTorch(torch.autograd.Function):
 
 class _LoweringConvCuda(torch.autograd.Function):
     """Kernel arm: the forward kernel writes the residual, the backward runs
-    the wgrad and (if needed) dgrad kernels (JAX ``_lc_pallas``)."""
+    the wgrad and (if needed) dgrad kernels (JAX ``_lc_pallas``), each in
+    its tiles of ``tiles`` (a ``bwd.ConvTiles``; None: the default
+    rule)."""
 
     @staticmethod
-    def forward(ctx, x, w, stride: int, needs_dgrad: bool):
+    def forward(ctx, x, w, stride: int, needs_dgrad: bool, tiles):
         x, w = x.contiguous(), w.contiguous()
-        ctx.conf = (stride, needs_dgrad, tuple(x.shape))
+        ctx.conf = (stride, needs_dgrad, tuple(x.shape), tiles)
         if not any(ctx.needs_input_grad[:2]):
-            return lowering_conv_cuda(x, w, stride=stride)
+            return lowering_conv_cuda(x, w, stride=stride, tiles=tiles)
         y, lowered = lowering_conv_cuda(x, w, stride=stride,
-                                        return_lowered=True)
+                                        return_lowered=True, tiles=tiles)
         ctx.save_for_backward(lowered, w)
         return y
 
     @staticmethod
     def backward(ctx, dy):
         lowered, w = ctx.saved_tensors
-        stride, needs_dgrad, x_shape = ctx.conf
+        stride, needs_dgrad, x_shape, tiles = ctx.conf
         dy = dy.contiguous()
-        dw = bwd.wgrad_cuda(lowered, dy, w.shape)
+        dw = bwd.wgrad_cuda(lowered, dy, w.shape, tiles=tiles)
         if needs_dgrad:
-            dx = bwd.dgrad_cuda(dy, w, x_shape, stride=stride)
+            dx = bwd.dgrad_cuda(dy, w, x_shape, stride=stride, tiles=tiles)
         else:
             dx = torch.zeros(x_shape, dtype=dy.dtype, device=dy.device)
-        return dx, dw.to(w.dtype), None, None
+        return dx, dw.to(w.dtype), None, None, None
 
 
 def lowering_conv_torch(x, w, *, stride: int = 1, needs_dgrad: bool = True):
@@ -90,14 +92,17 @@ def lowering_conv_torch(x, w, *, stride: int = 1, needs_dgrad: bool = True):
     return _LoweringConvTorch.apply(x, w, stride, needs_dgrad)
 
 
-def lowering_conv(x, w, *, stride: int = 1, needs_dgrad: bool = True):
+def lowering_conv(x, w, *, stride: int = 1, needs_dgrad: bool = True,
+                  tiles=None):
     """Convolution via the lowering-conv kernel, trainable through the
-    wgrad and dgrad kernels. CUDA tensors only: the kernel wrappers take
-    their plain versions for CPU tensors, but this arm is the kernels'."""
+    wgrad and dgrad kernels, in ``tiles`` (a ``bwd.ConvTiles``; default
+    ``bwd.default_tiles(w.shape)``). CUDA tensors only: the kernel
+    wrappers take their plain versions for CPU tensors, but this arm is
+    the kernels'."""
     if x.device.type != "cuda":
         raise ValueError("lowering_conv runs the CUDA kernels and needs CUDA "
                          "tensors; use lowering_conv_torch on the CPU")
-    return _LoweringConvCuda.apply(x, w, stride, needs_dgrad)
+    return _LoweringConvCuda.apply(x, w, stride, needs_dgrad, tiles)
 
 
 def lowering_conv_autodiff(x, w, *, stride: int = 1):

@@ -14,11 +14,13 @@ the flash kernel is forward-only, as the reference's Pallas kernel is, and
 raises if asked for gradients. Prefill may take either arm; decode runs
 ``transformer.decode_step``. Prefill and decode run under ``no_grad``.
 
+``params_specs`` is the JAX ``params_specs`` (an ``eval_shape`` of
+``init_params``): the full-size param tree on ``torch.device("meta")``,
+every shape and dtype and nothing allocated, for ``launch.params_util``.
 Of the JAX module's ``batch_specs`` only the modality stubs' shapes are
-kept (``modality_inputs``); it, ``params_specs``, ``cache_specs_struct``
-and ``make_train_step``'s ``grad_shardings`` are otherwise
-``ShapeDtypeStruct`` / GSPMD helpers of the XLA dry-run lane (ROADMAP
-Queue A item 15).
+kept (``modality_inputs``); it, ``cache_specs_struct`` and
+``make_train_step``'s ``grad_shardings`` are otherwise ``ShapeDtypeStruct``
+/ GSPMD helpers of the XLA dry-run lane (ROADMAP Queue A item 15).
 """
 from __future__ import annotations
 
@@ -68,6 +70,13 @@ def modality_inputs(cfg: ArchConfig, lead: tuple, *, seed: int = 0,
         tuple(lead) + (n, cfg.d_model), dtype=np.float32)
     return {key: torch.from_numpy(x).to(device=device,
                                         dtype=cfg.dtype("compute"))}
+
+
+def params_specs(cfg: ArchConfig, seed: int = 0):
+    """The param tree of ``transformer.init_params`` at full size on the
+    meta device: shapes and dtypes, no storage, no draws."""
+    gen = torch.Generator().manual_seed(seed)
+    return M.init_params(gen, cfg, device=torch.device("meta"))
 
 
 def make_train_step(cfg: ArchConfig, tc: TrainConfig, shape: InputShape,

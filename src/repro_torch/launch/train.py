@@ -38,6 +38,16 @@ from ``--seed`` and trains on its own shard; ``--dist-backend`` is
 ``nccl`` on ``cuda`` and ``gloo`` on ``cpu`` unless given, and is always
 the one asked for. Only rank 0 prints and writes files.
 
+A CNN on the kernels (``conv_impl="lowering_cuda"``, the JAX
+``lowering_interpret``) has its conv tiles autotuned before the engine is
+built, at the per-group batch (``models.cnn.autotune_conv_tiles``), and
+the per-layer choice printed; under ``torchrun`` rank 0 probes and every
+rank runs its choice (wgrad's split sets the order of its sums, and the
+ranks must agree bitwise with the single-process twin). ``--metrics-out``
+writes the metric stream (JSONL) and ``--trace-out`` a Chrome trace of the
+run's spans (autotune probes included), its metrics and, on replay, the
+replayed ``EventTrace``.
+
   python -m repro_torch.launch.train --arch qwen2-7b --smoke --groups 4 \\
       --momentum 0.3 --lr 0.05 --steps 60
   python -m repro_torch.launch.train --arch caffenet --batch 256 \\
@@ -54,6 +64,8 @@ the one asked for. Only rank 0 prints and writes files.
       --cluster-spec 1xgpu-g2.2xlarge,2xcpu-c4.4xlarge --plan --steps 5
   python -m repro_torch.launch.train --arch caffenet --batch 64 \\
       --steps 32 --replay-trace trace.npz
+  python -m repro_torch.launch.train --arch caffenet --batch 256 \\
+      --groups 4 --steps 5 --trace-out run.trace.json
 """
 from __future__ import annotations
 
@@ -70,6 +82,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticImages, SyntheticLM
 from repro_torch.device import CONV_IMPLS, UPDATE_IMPLS, check_conv_impl, resolve
 from repro_torch.engine import Engine
 from repro_torch.engine.engine import EXEC_MODES
+from repro_torch.kernels.lowering_conv import autotune
 from repro_torch.models import cnn as C
 from repro_torch.models import transformer as M
 from repro_torch.optim.sgd import init_momentum
@@ -196,6 +209,9 @@ def main(argv=None):
                     help="sink the run's metric stream (step_s, "
                          "data_wait_s, h2d_s, loss) to this JSONL file "
                          "(schema: repro_torch.obs.metrics)")
+    ap.add_argument("--trace-out", type=str, default="",
+                    help="export a Chrome trace-event JSON of the run's "
+                         "spans + metrics to this file (open in Perfetto)")
     ap.add_argument("--cluster-spec", type=str, default="",
                     help="heterogeneous cluster, e.g. "
                          "'8xgpu-g2.2xlarge,8xcpu-c4.4xlarge' (device "
@@ -221,7 +237,12 @@ def main(argv=None):
         ap.error("--plan and --replay-trace are mutually exclusive "
                  "(a replay executes a recorded schedule; there is "
                  "nothing for the planner to allocate)")
-    return _run(args)
+    # a recording span tracer for the whole run (workload build, autotune
+    # probes, engine loop) iff a trace export was requested; otherwise
+    # every span stays the shared no-op
+    from repro_torch.obs import spans
+    with spans.maybe_traced(bool(args.trace_out)):
+        return _run(args)
 
 
 def _init_dist(args, device):
@@ -251,6 +272,49 @@ def _run(args):
             dist.destroy_process_group()
 
 
+def _autotune(args, cfg, device, say) -> None:
+    """Probe and cache the conv tiles of every layer at the per-group batch
+    before the engine is built (the cache key leaves the batch out, so a
+    rank's shard finds it too). Under torchrun rank 0 probes and every
+    rank caches its choice."""
+    import torch.distributed as dist
+    spread = dist.is_initialized() and dist.get_world_size() > 1
+    batch = max(1, args.batch // args.groups)
+    tiles = [None]
+    if not spread or dist.get_rank() == 0:
+        tiles[0] = C.autotune_conv_tiles(cfg, batch, device=device)
+    if spread:
+        dist.broadcast_object_list(tiles, src=0)
+        for i, (xs, ws, s) in enumerate(C.conv_layer_shapes(cfg, batch)):
+            autotune.put_tiles(xs, ws, s, tiles[0][i], device=device)
+    say("autotuned conv tiles: " + ", ".join(
+        f"layer{i}(fwd={t.fwd_bn},wgrad={t.wgrad_bn}x{t.wgrad_blocks},"
+        f"dgrad={t.dgrad_bn})" for i, t in sorted(tiles[0].items())))
+
+
+def _export_obs(args, engine, groups: int, event_trace=None) -> None:
+    """Sink the run's metric stream / Chrome trace when requested (rank 0
+    only)."""
+    from repro_torch.engine.engine import rank_and_world
+    if not (args.metrics_out or args.trace_out) or rank_and_world()[0]:
+        return
+    from repro_torch.obs import export_chrome_trace, run_metadata
+    if args.metrics_out:
+        strategy = "trace-replay" if args.replay_trace else args.strategy
+        run = run_metadata(device=engine.device.type, extra={
+            "arch": args.arch, "groups": groups, "batch": args.batch,
+            "steps": args.steps, "strategy": strategy})
+        n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
+        print(f"metrics -> {args.metrics_out} ({n} records)")
+    if args.trace_out:
+        tracer = engine.tracer if engine.tracer.enabled else None
+        n = export_chrome_trace(args.trace_out, tracer=tracer,
+                                metrics=engine.telemetry.registry,
+                                event_trace=event_trace)
+        print(f"chrome trace -> {args.trace_out} ({n} events; open at "
+              "https://ui.perfetto.dev)")
+
+
 def _train(args, device):
     from repro_torch.engine.engine import rank_and_world
     rank = rank_and_world()[0]
@@ -260,6 +324,8 @@ def _train(args, device):
             print(msg, flush=True)
 
     cfg, params, loss_fn, data, head_filter = _build_workload(args, device)
+    if args.arch in C.CNN_CONFIGS and cfg.conv_impl == "lowering_cuda":
+        _autotune(args, cfg, device, say)
     mom = init_momentum(params)
     if args.replay_trace:
         return _replay(args, cfg, params, mom, loss_fn, data, device, say)
@@ -303,13 +369,7 @@ def _train(args, device):
     say(f"telemetry: {summary['median_step_ms']:.1f} ms/step median, "
         f"{summary['examples_per_s']:.0f} examples/s, "
         f"{summary['data_wait_ms']:.1f} ms/step host data wait")
-    if args.metrics_out and rank == 0:
-        from repro_torch.obs import run_metadata
-        run = run_metadata(device=device.type, extra={
-            "arch": args.arch, "groups": groups, "batch": args.batch,
-            "steps": args.steps, "strategy": args.strategy})
-        n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
-        print(f"metrics -> {args.metrics_out} ({n} records)")
+    _export_obs(args, engine, groups)
     if args.ckpt:
         say(f"checkpointed to {args.ckpt}")
     return losses
@@ -336,14 +396,7 @@ def _replay(args, cfg, params, mom, loss_fn, data, device, say):
     _, _, losses = engine.run(params, mom, data, steps=args.steps,
                               log_every=10, log=say)
     say(f"final loss {np.mean(losses[-5:]):.4f} (impl={args.replay_impl})")
-    if args.metrics_out:
-        from repro_torch.obs import run_metadata
-        run = run_metadata(device=device.type, extra={
-            "arch": args.arch, "groups": trace.num_groups,
-            "batch": args.batch, "steps": args.steps,
-            "strategy": "trace-replay"})
-        n = engine.telemetry.registry.to_jsonl(args.metrics_out, run)
-        print(f"metrics -> {args.metrics_out} ({n} records)")
+    _export_obs(args, engine, trace.num_groups, event_trace=t)
     return losses
 
 

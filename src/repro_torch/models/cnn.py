@@ -17,6 +17,11 @@ package's):
 
 The first conv layer is fed by data, so its input gradient is skipped
 (``needs_dgrad=False`` — Caffe's ``propagate_down=false``).
+
+On the ``lowering_cuda`` arm each conv runs the tiles the autotuner cached
+for its geometry (``autotune_conv_tiles``, which the launcher calls before
+the engine starts; ``kernels/lowering_conv/autotune.py``), or the fixed
+rule for a layer never probed.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.lowering_conv import autotune
 from repro_torch.kernels.lowering_conv import ops as lc_ops
 
 
@@ -109,7 +115,9 @@ def get_cnn_smoke_config(name: str) -> CNNConfig:
 
 def _conv(x, w, b, stride, impl, needs_dgrad=True):
     if impl == "lowering_cuda":
-        y = lc_ops.lowering_conv(x, w, stride=stride, needs_dgrad=needs_dgrad)
+        y = lc_ops.lowering_conv(
+            x, w, stride=stride, needs_dgrad=needs_dgrad,
+            tiles=autotune.cached_tiles(x.shape, w.shape, stride, x.device))
     elif impl == "lowering":
         y = lc_ops.lowering_conv_torch(x, w, stride=stride,
                                        needs_dgrad=needs_dgrad)
@@ -189,7 +197,8 @@ def loss_fn(params, batch, cfg: CNNConfig):
 
 
 def conv_layer_shapes(cfg: CNNConfig, batch_size: int):
-    """[(x_shape, w_shape, stride), ...] for each conv layer."""
+    """[(x_shape, w_shape, stride), ...] for each conv layer — the shapes
+    the tile autotuner and the conv kernels' checks iterate."""
     out = []
     c_in, size = cfg.in_channels, cfg.image_size
     for spec in cfg.convs:
@@ -200,6 +209,17 @@ def conv_layer_shapes(cfg: CNNConfig, batch_size: int):
         size = size // spec.pool if spec.pool > 1 else size
         c_in = spec.features
     return out
+
+
+def autotune_conv_tiles(cfg: CNNConfig, batch_size: int, **kw):
+    """Probe and cache the three kernels' tiles for every conv layer of
+    ``cfg`` (only the ``lowering_cuda`` arm reads the cache; layer 0 is fed
+    by data and probes no dgrad). ``kw`` goes to
+    ``autotune.autotune_tiles``. Returns {layer_index: ConvTiles}."""
+    return {i: autotune.autotune_tiles(x_shape, w_shape, stride,
+                                       needs_dgrad=i > 0, **kw)
+            for i, (x_shape, w_shape, stride) in enumerate(
+                conv_layer_shapes(cfg, batch_size))}
 
 
 def head_filter(path) -> bool:

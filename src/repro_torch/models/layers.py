@@ -40,18 +40,28 @@ CHUNKED_ATTN_THRESHOLD = 4096
 KV_CHUNK = 1024
 
 
+def init_device(generator: torch.Generator, device=None) -> torch.device:
+    """Where an ``init_*`` puts its params: ``device``, default the
+    generator's. ``torch.device("meta")`` gives the tree's shapes and
+    dtypes without allocating or drawing (``launch/steps.params_specs``)."""
+    return generator.device if device is None else torch.device(device)
+
+
 def _randn(shape, generator: torch.Generator, std: float,
-           dtype: torch.dtype, lead: tuple = ()) -> torch.Tensor:
-    """Normal(0, std) drawn in fp32 on the generator's device, stored in
-    ``dtype``, one leading index of ``lead + shape`` at a time in row-major
-    order: the fp32 draw of a stacked leaf (30 GB for llama-3.2-vision's
-    ``w_up`` at 40 layers) never exists whole. On the CPU the numbers are
-    those of one draw of the whole leaf wherever a layer holds a multiple
-    of 16 values (the generator fills normals in blocks of 16)."""
-    out = torch.empty(lead + tuple(shape), dtype=dtype,
-                      device=generator.device)
+           dtype: torch.dtype, lead: tuple = (), device=None) -> torch.Tensor:
+    """Normal(0, std) drawn in fp32 on ``init_device(generator, device)``,
+    stored in ``dtype``, one leading index of ``lead + shape`` at a time in
+    row-major order: the fp32 draw of a stacked leaf (30 GB for
+    llama-3.2-vision's ``w_up`` at 40 layers) never exists whole. On the
+    CPU the numbers are those of one draw of the whole leaf wherever a
+    layer holds a multiple of 16 values (the generator fills normals in
+    blocks of 16). On the meta device nothing is drawn."""
+    dev = init_device(generator, device)
+    out = torch.empty(lead + tuple(shape), dtype=dtype, device=dev)
+    if dev.type == "meta":
+        return out
     for idx in itertools.product(*map(range, lead)):
-        x = torch.randn(shape, generator=generator, device=generator.device,
+        x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
         out[idx] = x.mul_(std)
     return out
@@ -103,20 +113,21 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
 
 def init_attention(cfg: ArchConfig, generator: torch.Generator, *,
                    dtype: Optional[torch.dtype] = None, lead: tuple = (),
-                   cross: bool = False):
+                   cross: bool = False, device=None):
     """``dtype`` overrides the stored dtype (default: the param dtype);
     ``lead`` prepends axes, e.g. ``(num_layers,)`` for a stacked block.
-    A ``cross`` (cross-attention) block has no qkv biases."""
+    A ``cross`` (cross-attention) block has no qkv biases. ``device``:
+    ``init_device``."""
     d, h, kv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                     cfg.resolved_head_dim)
     dt = dtype or cfg.dtype("param")
     std = d ** -0.5
-    p = {"wq": _randn((d, h, hd), generator, std, dt, lead),
-         "wk": _randn((d, kv, hd), generator, std, dt, lead),
-         "wv": _randn((d, kv, hd), generator, std, dt, lead),
-         "wo": _randn((h, hd, d), generator, std, dt, lead)}
+    dev = init_device(generator, device)
+    p = {"wq": _randn((d, h, hd), generator, std, dt, lead, dev),
+         "wk": _randn((d, kv, hd), generator, std, dt, lead, dev),
+         "wv": _randn((d, kv, hd), generator, std, dt, lead, dev),
+         "wo": _randn((h, hd, d), generator, std, dt, lead, dev)}
     if cfg.qkv_bias and not cross:
-        dev = generator.device
         p["bq"] = torch.zeros(lead + (h, hd), dtype=dt, device=dev)
         p["bk"] = torch.zeros(lead + (kv, hd), dtype=dt, device=dev)
         p["bv"] = torch.zeros(lead + (kv, hd), dtype=dt, device=dev)
@@ -315,14 +326,15 @@ def init_attn_cache(batch: int, cfg: ArchConfig, seq_len: int,
 
 def init_mlp(cfg: ArchConfig, generator: torch.Generator,
              d_ff: Optional[int] = None, *,
-             dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+             dtype: Optional[torch.dtype] = None, lead: tuple = (),
+             device=None):
     d = cfg.d_model
     f = d_ff if d_ff is not None else cfg.d_ff
     dt = dtype or cfg.dtype("param")
-    p = {"w_up": _randn((d, f), generator, d ** -0.5, dt, lead),
-         "w_down": _randn((f, d), generator, f ** -0.5, dt, lead)}
+    p = {"w_up": _randn((d, f), generator, d ** -0.5, dt, lead, device),
+         "w_down": _randn((f, d), generator, f ** -0.5, dt, lead, device)}
     if cfg.act == "swiglu":
-        p["w_gate"] = _randn((d, f), generator, d ** -0.5, dt, lead)
+        p["w_gate"] = _randn((d, f), generator, d ** -0.5, dt, lead, device)
     return p
 
 
@@ -341,12 +353,13 @@ def mlp_forward(p, x, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def init_embed(cfg: ArchConfig, generator: torch.Generator, *,
-               dtype: Optional[torch.dtype] = None):
+               dtype: Optional[torch.dtype] = None, device=None):
     dt = dtype or cfg.dtype("param")
-    p = {"tok": _randn((cfg.vocab_size, cfg.d_model), generator, 0.02, dt)}
+    p = {"tok": _randn((cfg.vocab_size, cfg.d_model), generator, 0.02, dt,
+                       device=device)}
     if not cfg.tie_embeddings:
         p["unembed"] = _randn((cfg.d_model, cfg.vocab_size), generator,
-                              cfg.d_model ** -0.5, dt)
+                              cfg.d_model ** -0.5, dt, device=device)
     return p
 
 

@@ -34,24 +34,27 @@ MAX_CAPACITY = 1024
 
 
 def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
-             dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+             dtype: Optional[torch.dtype] = None, lead: tuple = (),
+             device=None):
     """The JAX tree: ``router`` (D, E) fp32, ``w_gate`` / ``w_up`` (E, D,
     F), ``w_down`` (E, F, D), and ``shared`` when the config has shared
     experts; ``lead`` prepends stacking axes."""
     m = cfg.moe
     d, f, e = cfg.d_model, m.d_ff_expert, m.num_experts
     dt = dtype or cfg.dtype("param")
+    dev = L.init_device(generator, device)
     p = {"router": L._randn((d, e), generator, d ** -0.5, torch.float32,
-                            lead),
-         "w_gate": L._randn((e, d, f), generator, d ** -0.5, dt, lead),
-         "w_up": L._randn((e, d, f), generator, d ** -0.5, dt, lead),
-         "w_down": L._randn((e, f, d), generator, f ** -0.5, dt, lead)}
+                            lead, dev),
+         "w_gate": L._randn((e, d, f), generator, d ** -0.5, dt, lead, dev),
+         "w_up": L._randn((e, d, f), generator, d ** -0.5, dt, lead, dev),
+         "w_down": L._randn((e, f, d), generator, f ** -0.5, dt, lead, dev)}
     if m.num_shared_experts > 0:
         fs = m.num_shared_experts * f
         p["shared"] = {
-            "w_gate": L._randn((d, fs), generator, d ** -0.5, dt, lead),
-            "w_up": L._randn((d, fs), generator, d ** -0.5, dt, lead),
-            "w_down": L._randn((fs, d), generator, fs ** -0.5, dt, lead)}
+            "w_gate": L._randn((d, fs), generator, d ** -0.5, dt, lead, dev),
+            "w_up": L._randn((d, fs), generator, d ** -0.5, dt, lead, dev),
+            "w_down": L._randn((fs, d), generator, fs ** -0.5, dt, lead,
+                               dev)}
     return p
 
 

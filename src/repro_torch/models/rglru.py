@@ -28,24 +28,26 @@ def _d_rnn(cfg: ArchConfig) -> int:
 
 
 def init_rglru_block(cfg: ArchConfig, generator: torch.Generator, *,
-                     dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+                     dtype: Optional[torch.dtype] = None, lead: tuple = (),
+                     device=None):
     """The JAX tree of one recurrent block; ``lead`` prepends stacking
     axes."""
     d = cfg.d_model
     dr = _d_rnn(cfg)
     k = cfg.hybrid.conv_width
     dt = dtype or cfg.dtype("param")
-    dev = generator.device
+    dev = L.init_device(generator, device)
     return {
-        "w_gate_branch": L._randn((d, dr), generator, d ** -0.5, dt, lead),
-        "w_rec_in": L._randn((d, dr), generator, d ** -0.5, dt, lead),
-        "conv_w": L._randn((k, dr), generator, 0.1, dt, lead),
+        "w_gate_branch": L._randn((d, dr), generator, d ** -0.5, dt, lead,
+                                  dev),
+        "w_rec_in": L._randn((d, dr), generator, d ** -0.5, dt, lead, dev),
+        "conv_w": L._randn((k, dr), generator, 0.1, dt, lead, dev),
         "conv_b": torch.zeros(lead + (dr,), dtype=dt, device=dev),
-        "w_a": L._randn((dr, dr), generator, dr ** -0.5, dt, lead),
-        "w_x": L._randn((dr, dr), generator, dr ** -0.5, dt, lead),
+        "w_a": L._randn((dr, dr), generator, dr ** -0.5, dt, lead, dev),
+        "w_x": L._randn((dr, dr), generator, dr ** -0.5, dt, lead, dev),
         "lambda_raw": torch.full(lead + (dr,), 0.65, dtype=torch.float32,
                                  device=dev),
-        "w_out": L._randn((dr, d), generator, dr ** -0.5, dt, lead),
+        "w_out": L._randn((dr, d), generator, dr ** -0.5, dt, lead, dev),
     }
 
 

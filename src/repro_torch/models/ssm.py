@@ -34,7 +34,8 @@ def _dims(cfg: ArchConfig):
 
 
 def init_ssm(cfg: ArchConfig, generator: torch.Generator, *,
-             dtype: Optional[torch.dtype] = None, lead: tuple = ()):
+             dtype: Optional[torch.dtype] = None, lead: tuple = (),
+             device=None):
     """The JAX tree (``in_proj``, ``conv_w``, ``conv_b``, ``A_log``, ``D``,
     ``dt_bias``, ``out_proj``); ``lead`` prepends stacking axes."""
     s = cfg.ssm
@@ -42,18 +43,20 @@ def init_ssm(cfg: ArchConfig, generator: torch.Generator, *,
     d_inner, nheads, d_conv = _dims(cfg)
     proj_out = 2 * d_inner + 2 * s.state_dim + nheads   # z, x, B, C, dt
     dt = dtype or cfg.dtype("param")
-    dev = generator.device
+    dev = L.init_device(generator, device)
     f32 = dict(dtype=torch.float32, device=dev)
     a_log = torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
     return {
-        "in_proj": L._randn((d, proj_out), generator, d ** -0.5, dt, lead),
-        "conv_w": L._randn((s.conv_width, d_conv), generator, 0.1, dt, lead),
+        "in_proj": L._randn((d, proj_out), generator, d ** -0.5, dt, lead,
+                            dev),
+        "conv_w": L._randn((s.conv_width, d_conv), generator, 0.1, dt, lead,
+                           dev),
         "conv_b": torch.zeros(lead + (d_conv,), dtype=dt, device=dev),
         "A_log": a_log.expand(lead + (nheads,)).clone(),
         "D": torch.ones(lead + (nheads,), **f32),
         "dt_bias": torch.zeros(lead + (nheads,), **f32),
         "out_proj": L._randn((d_inner, d), generator,
-                             d_inner ** -0.5, dt, lead),
+                             d_inner ** -0.5, dt, lead, dev),
     }
 
 

@@ -102,19 +102,18 @@ def _vlm_counts(cfg: ArchConfig):
     return per, n_super, n_rem
 
 
-def _init_block(kind: str, cfg: ArchConfig, gen, wdt, lead: tuple):
+def _init_block(kind: str, cfg: ArchConfig, gen, wdt, lead: tuple, dev):
     """One block's tree, its leaves stacked on ``lead``: the JAX
     ``_init_{dense,moe,ssm,rec,cross,encdec_dec}_block``."""
     pdt = cfg.dtype("param")
-    ln = lambda: L.init_rms_norm(cfg.d_model, pdt, gen.device, lead=lead)
-    attn = lambda cross=False: L.init_attention(cfg, gen, dtype=wdt,
-                                                lead=lead, cross=cross)
-    mlp = lambda: L.init_mlp(cfg, gen, dtype=wdt, lead=lead)
+    kw = dict(dtype=wdt, lead=lead, device=dev)
+    ln = lambda: L.init_rms_norm(cfg.d_model, pdt, dev, lead=lead)
+    attn = lambda cross=False: L.init_attention(cfg, gen, cross=cross, **kw)
+    mlp = lambda: L.init_mlp(cfg, gen, **kw)
     if kind == "ssm":
-        return {"ln": ln(), "ssm": S.init_ssm(cfg, gen, dtype=wdt, lead=lead)}
+        return {"ln": ln(), "ssm": S.init_ssm(cfg, gen, **kw)}
     if kind == "rec":
-        return {"ln1": ln(),
-                "rec": R.init_rglru_block(cfg, gen, dtype=wdt, lead=lead),
+        return {"ln1": ln(), "rec": R.init_rglru_block(cfg, gen, **kw),
                 "ln2": ln(), "mlp": mlp()}
     if kind == "cross":
         return {"ln1": ln(), "cross": attn(cross=True), "ln2": ln(),
@@ -123,26 +122,29 @@ def _init_block(kind: str, cfg: ArchConfig, gen, wdt, lead: tuple):
         return {"ln1": ln(), "attn": attn(), "ln2": ln(),
                 "cross": attn(cross=True), "ln3": ln(), "mlp": mlp()}
     mixer = attn()
-    ffn = (M.init_moe(cfg, gen, dtype=wdt, lead=lead) if kind == "moe"
-           else mlp())
+    ffn = M.init_moe(cfg, gen, **kw) if kind == "moe" else mlp()
     return {"ln1": ln(), "attn": mixer, "ln2": ln(),
             ("moe" if kind == "moe" else "mlp"): ffn}
 
 
 def init_params(generator: torch.Generator, cfg: ArchConfig, *,
-                weight_dtype: Optional[torch.dtype] = None):
-    """Random params on ``generator.device``. Each weight is drawn in fp32
-    and stored in ``weight_dtype`` (default: the config's param dtype) one
-    tensor at a time, a stacked leaf one layer at a time; norm scales stay
-    in the param dtype and ``convert.FP32_LEAVES`` in fp32. Passing the
-    compute dtype gives what ``convert.to_compute_dtype`` would, without
-    the full fp32 copy ever existing."""
+                weight_dtype: Optional[torch.dtype] = None, device=None):
+    """Random params on ``device`` (default ``generator.device``). Each
+    weight is drawn in fp32 and stored in ``weight_dtype`` (default: the
+    config's param dtype) one tensor at a time, a stacked leaf one layer at
+    a time; norm scales stay in the param dtype and ``convert.FP32_LEAVES``
+    in fp32. Passing the compute dtype gives what
+    ``convert.to_compute_dtype`` would, without the full fp32 copy ever
+    existing. On ``torch.device("meta")`` the tree has every shape and
+    dtype, and nothing is allocated or drawn."""
     require_ported(cfg)
     pdt = cfg.dtype("param")
-    params = {"embed": L.init_embed(cfg, generator, dtype=weight_dtype),
-              "ln_f": L.init_rms_norm(cfg.d_model, pdt, generator.device)}
+    dev = L.init_device(generator, device)
+    params = {"embed": L.init_embed(cfg, generator, dtype=weight_dtype,
+                                    device=dev),
+              "ln_f": L.init_rms_norm(cfg.d_model, pdt, dev)}
     block = lambda kind, *lead: _init_block(kind, cfg, generator,
-                                            weight_dtype, lead)
+                                            weight_dtype, lead, dev)
     t = cfg.arch_type
     if t == "hybrid":
         n_super, n_rem, n_rec = _hybrid_counts(cfg)
@@ -158,8 +160,7 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
             params["rem"] = block("dense", n_rem)
     elif t == "encdec":
         params["enc"] = block("dense", cfg.encoder_layers)
-        params["enc_ln"] = L.init_rms_norm(cfg.d_model, pdt,
-                                           generator.device)
+        params["enc_ln"] = L.init_rms_norm(cfg.d_model, pdt, dev)
         params["blocks"] = block("encdec_dec", cfg.num_layers)
     else:
         params["blocks"] = block(t, cfg.num_layers)

@@ -33,7 +33,12 @@ head dim 64, G = 1 (the Whisper encoder) and causal with 64 query heads
 on 8 kv heads of 128 (llama-3.2-vision); ``make_prefill_step``'s kernel
 arm within 1e-4 of the plain arm for both families (fp32, smoke widths);
 trace replay of smoke lenet through the conv kernels within 1e-4 of the
-CPU's plain arms.
+CPU's plain arms. The conv-tile autotuner: every candidate tile of the
+three conv kernels at the fp32 limits above (partial tiles: Cout 96 at
+BN 64, Cout 256 and Cin 256 at BN 96), ``smem_bytes`` equal to each
+compiled kernel's export, an unbuilt width refused, ``DEFAULT_TILES``
+bitwise the launch that leaves the tiles out, and the launcher's
+autotune probe and ``--trace-out`` on caffenet-smoke.
 """
 import dataclasses
 import warnings
@@ -638,3 +643,107 @@ def test_trace_replay_on_the_card_matches_the_cpu(card):
                                rtol=1e-4)
     for a, b in zip(*(out[d][0] for d in ("cuda", "cpu"))):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the conv-tile autotuner's candidates, footprint model and default tiles
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((4, 23, 23, 3), (11, 11, 3, 96), 4),    # Cout 96 at BN 64: 32 masked
+    ((2, 13, 13, 96), (5, 5, 96, 256), 1),   # Cout 256 at BN 96: 288 columns
+    ((2, 9, 9, 256), (3, 3, 256, 384), 1),   # Cin 256 at BN 96 (dgrad)
+    ((2, 12, 12, 8), (3, 3, 8, 70), 2)])     # ragged tiles, stride 2
+def test_every_tile_candidate_matches_plain(card, x_shape, w_shape, stride):
+    from repro_torch.kernels.lowering_conv import autotune
+    g = torch.Generator(device=card).manual_seed(w_shape[3] + stride)
+    x = torch.randn(x_shape, generator=g, device=card)
+    w = torch.randn(w_shape, generator=g, device=card) * 0.1
+    kh, kw = w_shape[:2]
+    want_low = lower(x, kh, kw, stride)
+    dy = None
+    cands = autotune.tile_candidates(x_shape, w_shape, stride, device=card)
+    dflt = lc_bwd.default_tiles(w_shape)
+    assert sorted(cands["fwd"]) == sorted(cands["dgrad"]) == [64, 96]
+    for bn in cands["fwd"]:
+        t = dataclasses.replace(dflt, fwd_bn=bn)
+        y, low = lowering_conv_cuda(x, w, stride=stride, return_lowered=True,
+                                    tiles=t)
+        _fp32_close(y, lowered_conv_ref(x, w, stride))
+        assert torch.equal(low.reshape(want_low.shape), want_low)
+        dy = torch.randn(y.shape, generator=g, device=card) if dy is None \
+            else dy
+    for bn, blocks in cands["wgrad"]:
+        t = dataclasses.replace(dflt, wgrad_bn=bn, wgrad_blocks=blocks)
+        dw = lc_bwd.wgrad_cuda(low, dy, w_shape, tiles=t)
+        _fp32_close(dw, lc_bwd.wgrad_ref(want_low, dy, w_shape))
+        assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w_shape, tiles=t), dw)
+    for bn in cands["dgrad"]:
+        t = dataclasses.replace(dflt, dgrad_bn=bn)
+        _fp32_close(lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride,
+                                      tiles=t),
+                    lc_bwd.dgrad_ref(dy, w, x_shape, stride))
+
+
+def test_smem_model_matches_the_compiled_kernels(card):
+    from repro_torch.kernels.lowering_conv import lowering_conv as lc
+    for pass_ in ("fwd", "wgrad", "dgrad"):
+        for bn in lc.DGRAD_BLOCK_N:
+            assert lc.kernel_smem_bytes(pass_, bn) == \
+                lc.smem_bytes(pass_=pass_, block_n=bn)
+        assert lc.kernel_smem_bytes(pass_, 128) == -1
+
+
+def test_kernels_refuse_an_unbuilt_width(card):
+    x = torch.randn((2, 9, 9, 8), device=card)
+    w = torch.randn((3, 3, 8, 16), device=card)
+    import types
+    # past ConvTiles' own check: the C entry refuses it
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        lowering_conv_cuda(x, w, tiles=types.SimpleNamespace(fwd_bn=128))
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride",
+                         C.conv_layer_shapes(C.CAFFENET, 8),
+                         ids=["conv1", "conv2", "conv3", "conv4", "conv5"])
+def test_default_tiles_are_bitwise_the_untiled_launch(card, x_shape, w_shape,
+                                                      stride):
+    """A layer never probed runs ``DEFAULT_TILES``: the same bits as a
+    launch that leaves the tiles out (the rule the kernels ran before the
+    autotuner), through the model's own lookup too."""
+    from repro_torch.kernels.lowering_conv import autotune
+    autotune.clear_tile_cache()
+    g = torch.Generator(device=card).manual_seed(3)
+    x = torch.randn(x_shape, generator=g, device=card)
+    w = torch.randn(w_shape, generator=g, device=card) * 0.05
+    t = autotune.cached_tiles(x_shape, w_shape, stride, card)
+    assert t == autotune.DEFAULT_TILES(w_shape)
+    y, low = lowering_conv_cuda(x, w, stride=stride, return_lowered=True)
+    yt, lowt = lowering_conv_cuda(x, w, stride=stride, return_lowered=True,
+                                  tiles=t)
+    assert torch.equal(y, yt) and torch.equal(low, lowt)
+    dy = torch.randn(y.shape, generator=g, device=card)
+    assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w_shape),
+                       lc_bwd.wgrad_cuda(low, dy, w_shape, tiles=t))
+    assert torch.equal(lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride),
+                       lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride,
+                                         tiles=t))
+
+
+def test_launcher_autotunes_and_traces_on_the_card(card, tmp_path):
+    from repro_torch.kernels.lowering_conv import autotune
+    from repro_torch.launch import train as TR
+    from repro_torch.obs import validate
+    autotune.clear_tile_cache()
+    path = tmp_path / "t.json"
+    losses = TR.main(["--arch", "caffenet", "--smoke", "--batch", "8",
+                      "--groups", "2", "--steps", "3", "--trace-out",
+                      str(path)])
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert validate.check_trace(path, ["autotune.conv_tiles",
+                                       "autotune.candidate", "engine.run",
+                                       "engine.step"]) == []
+    cfg = C.get_cnn_smoke_config("caffenet")
+    for xs, ws, s in C.conv_layer_shapes(cfg, 4):
+        assert autotune._cache_key(xs, ws, s, card) in autotune._TILE_CACHE
+    autotune.clear_tile_cache()

@@ -289,10 +289,11 @@ def test_enc_ln_keeps_its_dtype_under_the_compute_cast():
     assert torch.equal(got, want)
 
 
-def _whole_leaf_randn(shape, generator, std, dtype, lead=()):
+def _whole_leaf_randn(shape, generator, std, dtype, lead=(), device=None):
     """The draw before the layer-at-a-time one: the whole stacked leaf."""
     x = torch.randn(lead + tuple(shape), generator=generator,
-                    device=generator.device, dtype=torch.float32)
+                    device=L.init_device(generator, device),
+                    dtype=torch.float32)
     return x.mul_(std).to(dtype)
 
 
