@@ -202,7 +202,19 @@ passed over, nothing falls back to the CPU):
    size, and the bytes reckoned for the runs phases 12, 14 and 15
    measured, beside their peaks (readings). Phase 13's launcher run finds
    its tiles probed before it, outside its counted run; every other phase
-   runs the default tiles (the cache is emptied after phases 13 and 17).
+   runs the default tiles (the cache is emptied after phases 13 and 17);
+18. the dry-run on meta tensors (``launch/dryrun.py``): (a) its host-smoke
+   lane for llama3-405b, qwen2-moe-a2.7b and mamba2-2.7b on a (1, 4, 2)
+   layout, one line each (a sharding or exchange regression raises);
+   (b) qwen2-7b at full width, 2 layers, bf16 compute, remat:
+   ``make_train_step`` at 16 x 512 counted by ``launch/meta_count`` on
+   meta tensors and on the card, which must give the same integer FLOPs,
+   the card's ``max_memory_allocated`` over the counted step beside the
+   meta ``peak_per_chip_est``, the step's median time (CUDA events) beside
+   the roofline; (c) a dense decode step of full-depth qwen2-7b at batch 8
+   over a 1024-slot cache, FLOPs equal on meta and the card, its median
+   wall beside the roofline's memory term. No port kernel runs in (b) or
+   (c): their launch counts stay 0.
 
 Then the ``kernels`` JSON line, the ``nvidia-smi`` name / power-limit line,
 and last ``{"ok": true, "device": {...}}``. ``--kernels-only`` stops after
@@ -3025,6 +3037,171 @@ def phase_autotune(torch, run_ips: float) -> tuple:
     return got, errs
 
 
+# ---------------------------------------------------------------------------
+# The dry-run on meta tensors, held to the card
+# ---------------------------------------------------------------------------
+
+DRY_ITERS = 5                  # timed steps of (b) and (c), after warm-ups
+DRY_DECODE_BATCH, DRY_DECODE_SEQ = 8, 1024   # phase 5's slots and max_seq
+
+
+def phase_dryrun_smoke() -> None:
+    """(a) ``launch/dryrun.host_smoke_one`` for ``HOST_SMOKE_ARCHS`` on
+    the (1, 4, 2) layout, on meta tensors (the host's CPU reckons them):
+    a regression raises."""
+    from repro_torch.launch import dryrun as DR
+    for arch in DR.HOST_SMOKE_ARCHS:
+        r = DR.host_smoke_one(arch, groups=1, data=4, mp=2, verbose=False)
+        m, c = r["memory"], r["collectives"]
+        log(f"[dryrun:a] {arch} {r['mesh']} hostsmoke (rank batch "
+            f"{r['rank_batch']} x {r['seq_len']}): args/rank "
+            f"{m['argument_bytes']} B (bound {m['argument_bound_bytes']:.0f}),"
+            f" mp-sharded leaves {r['mp_sharded_param_leaves']}/"
+            f"{r['param_leaves']}, flops {r['flops']}, temp "
+            f"{m['temp_bytes']} B, exchange {c['received']} B in "
+            f"{c['gathers']} gathers, reckoned in {r['reckon_s']} s ok")
+
+
+def phase_dryrun_train(torch) -> None:
+    """(b) qwen2-7b at full width, ``LM_LAYERS`` layers, bf16 compute,
+    remat: ``steps.make_train_step`` at ``LM_BATCH`` x ``LM_SEQ`` counted
+    on meta and on the card (the same integer FLOPs, or fail), the card's
+    peak memory beside the meta reckoning, the step's median time beside
+    the roofline."""
+    from repro_torch.configs.base import InputShape, TrainConfig
+    from repro_torch.core import tree as T
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.meta_count import count_step
+    from repro_torch.launch.params_util import param_bytes
+    from repro_torch.launch.roofline import Roofline, analytic_hbm_bytes
+    from repro_torch.models import transformer as M
+    cfg = lm_config()
+    shape = InputShape("lm", LM_SEQ, LM_BATCH, "train")
+    step = S.make_train_step(cfg, TrainConfig(learning_rate=LM_LR,
+                                              momentum=LM_MU), shape)
+    t0 = time.perf_counter()
+    spec = S.params_specs(cfg)
+    spec_batch = S.batch_specs(cfg, shape)
+    meta = count_step(step, spec, T.tree_map(
+        lambda x: torch.empty(x.shape, dtype=cfg.dtype("mom"),
+                              device="meta"), spec), spec_batch)
+    state = DR.rank_state(spec, cfg, {"group": 1, "data": 1, "mp": 1},
+                          train=True)["state_bytes"]
+    est = state + _tree_bytes(spec_batch) + meta.peak_live_bytes
+    t_meta = time.perf_counter() - t0
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    params = M.init_params(gen, cfg)
+    mom = T.tree_map(torch.zeros_like, params)
+    batch = {k: torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_SEQ),
+                              generator=gen, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    _free(torch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    card = count_step(step, params, mom, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[dryrun:b] qwen2-7b {LM_LAYERS} layers (reduced: num_layers 28 "
+        f"-> {LM_LAYERS}), make_train_step {LM_BATCH} x {LM_SEQ}, "
+        f"{cfg.compute_dtype} compute, remat {cfg.remat}: flops meta "
+        f"{meta.flops} card {card.flops} ({meta.flops_by_op} / "
+        f"{card.flops_by_op}); live-bytes peak beyond the inputs meta "
+        f"{meta.peak_live_bytes} card {card.peak_live_bytes}; meta counted "
+        f"in {t_meta:.1f} s")
+    if card.flops != meta.flops:
+        fail(f"the train step counts {card.flops} FLOPs on the card and "
+             f"{meta.flops} on meta tensors")
+    ms = cuda_ms(torch, lambda: step(params, mom, batch), iters=DRY_ITERS,
+                 warmup=1)
+    roof = Roofline(flops=float(meta.flops), hbm_bytes=analytic_hbm_bytes(
+        cfg, shape, 1, params_bytes_global=param_bytes(spec)),
+        collective_bytes=0.0, chips=1)
+    log(f"[dryrun:b] peak memory card {peak} B ({peak / 1e9:.2f} GB, "
+        f"torch.cuda.max_memory_allocated over the counted step) vs meta "
+        f"peak_per_chip_est {est} B ({est / 1e9:.2f} GB: state {state} + "
+        f"batch + temp {meta.peak_live_bytes}); step median {ms:.3f} ms "
+        f"(CUDA events, {DRY_ITERS} steps after 2 warm-ups) vs roofline "
+        f"{roof.step_time * 1e3:.3f} ms ({roof.bottleneck}: compute "
+        f"{roof.t_compute * 1e3:.3f}, memory {roof.t_memory * 1e3:.3f}): "
+        f"share of the roofline {roof.step_time * 1e3 / ms:.3f} ok")
+    del params, mom, batch
+    _free(torch)
+
+
+def phase_dryrun_decode(torch) -> None:
+    """(c) a dense decode step of full-depth qwen2-7b (bf16 weights from
+    seed 0) at ``DRY_DECODE_BATCH`` rows over a ``DRY_DECODE_SEQ`` cache:
+    FLOPs on meta and on the card (equal, or fail), the step's median wall
+    time beside the roofline's memory term (weights and cache read)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.meta_count import count_step
+    from repro_torch.launch.roofline import Roofline, analytic_hbm_bytes
+    from repro_torch.models import transformer as M
+    cfg = get_config("qwen2-7b")
+    cd = cfg.dtype("compute")
+    shape = InputShape("decode", DRY_DECODE_SEQ, DRY_DECODE_BATCH, "decode")
+    step = S.make_decode_step(cfg, shape)
+    pos = DRY_DECODE_SEQ - 1
+    spec = M.init_params(torch.Generator().manual_seed(0), cfg,
+                         weight_dtype=cd, device=torch.device("meta"))
+    spec_cache = S.cache_specs_struct(cfg, shape)
+    meta = count_step(step, spec, spec_cache, S.batch_specs(cfg, shape), pos)
+    gen = torch.Generator(device=torch.device("cuda")).manual_seed(0)
+    params = M.init_params(gen, cfg, weight_dtype=cd)
+    cache = M.init_cache(cfg, DRY_DECODE_BATCH, DRY_DECODE_SEQ,
+                         S.effective_window(cfg, shape), device="cuda")
+    batch = {"tokens": torch.randint(0, cfg.vocab_size,
+                                     (DRY_DECODE_BATCH, 1), generator=gen,
+                                     device="cuda", dtype=torch.int32)}
+    card = count_step(step, params, cache, batch, pos)
+    if card.flops != meta.flops:
+        fail(f"the decode step counts {card.flops} FLOPs on the card and "
+             f"{meta.flops} on meta tensors")
+    walls = []
+    for i in range(2 + DRY_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, cache, batch, pos)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = statistics.median(walls[2:])
+    wbytes, cbytes = _tree_bytes(params), _tree_bytes(cache)
+    roof = Roofline(flops=float(meta.flops), hbm_bytes=analytic_hbm_bytes(
+        cfg, shape, 1, params_bytes_global=wbytes,
+        cache_bytes_global=cbytes), collective_bytes=0.0, chips=1)
+    log(f"[dryrun:c] qwen2-7b decode step, {cfg.num_layers} layers, batch "
+        f"{DRY_DECODE_BATCH}, cache {DRY_DECODE_SEQ}: flops meta "
+        f"{meta.flops} card {card.flops}; weights {wbytes} B, cache "
+        f"{cbytes} B; wall median {wall:.3f} ms (host clock, synchronized,"
+        f" {DRY_ITERS} steps after 2 warm-ups; min {min(walls[2:]):.3f} max "
+        f"{max(walls[2:]):.3f}) vs roofline memory term "
+        f"{roof.t_memory * 1e3:.3f} ms ({roof.bottleneck}; compute "
+        f"{roof.t_compute * 1e3:.4f}) ok")
+    del params, cache
+    _free(torch)
+
+
+def phase_dryrun(torch) -> None:
+    """Phase 18: (a)-(c). No port kernel runs on this path: the counts
+    stay at 0."""
+    t0 = time.perf_counter()
+    phase_dryrun_smoke()
+    counts = _all_counts()
+    for k in counts.values():
+        k.launches = 0
+    phase_dryrun_train(torch)
+    phase_dryrun_decode(torch)
+    got = {k: f.launches for k, f in counts.items()}
+    if any(got.values()):
+        fail(f"the dry-run's steps launched port kernels: {got}")
+    log(f"[dryrun] phase 18 in {time.perf_counter() - t0:.1f} s: launches "
+        f"{got} (this path runs no port kernel)")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -3095,6 +3272,8 @@ def main(argv=None) -> None:
         launches[name] += n
     for name, e in tuned_errs.items():
         errs[name] = max(errs[name], e)
+    _free(torch)
+    phase_dryrun(torch)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     rows = [

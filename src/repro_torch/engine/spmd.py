@@ -39,8 +39,10 @@ exists for XLA's copy insertion, and this step writes new tensors.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import warnings
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -55,6 +57,65 @@ from repro_torch.sharding.rules import engine_param_specs, mesh_axes, spec_mp_di
 #: default per-bucket slab size target (bytes) of the overlapped exchange;
 #: 0 selects the whole-tree arm
 DEFAULT_BUCKET_BYTES = 4 << 20
+
+
+#: bytes of the per-shard loss each rank gathers (``SpmdStep._losses``):
+#: the loss functions the engine runs return an fp32 scalar
+LOSS_BYTES = 4
+
+
+@dataclasses.dataclass
+class ExchangeBytes:
+    """One rank's exchange in one ``SpmdStep`` round. A gather of an
+    n-byte tensor over an s-rank group makes each rank send its n bytes
+    to, and receive n bytes from, each of the s - 1 others (a ring
+    forwards the same volume): ``sent = received = (s - 1)·n``."""
+    sent: int
+    received: int
+    gathers: int                   # ``all_gather`` calls, size-1 groups too
+    by_axis: Dict[str, int]        # mesh axis -> bytes received over it
+
+
+def exchange_bytes(params, layout, *, bucket_bytes: int = DEFAULT_BUCKET_BYTES,
+                   rules=None, head_filter: Optional[Callable] = None
+                   ) -> ExchangeBytes:
+    """The gathers one ``SpmdStep`` round makes on each rank of a
+    ``{"group": g, "data": k, "mp": mp}`` layout, reckoned from the full
+    parameter tree's shapes and dtypes (meta tensors do): at mp > 1 the
+    gather of each mp-sharded leaf over "mp" (the step's ``unshard`` of its
+    storage); per bucket of the local gradient shards (``assign_buckets``,
+    with ``head_filter``'s head flags), or per leaf when ``bucket_bytes``
+    is 0, a gather over "data" and one of the data mean over "group"; and
+    the per-shard losses, gathered over "data" then "group". No process
+    group is needed."""
+    axes = mesh_axes(layout)
+    g, k, mp = axes["group"], axes["data"], axes["mp"]
+    flat = T.leaves(params)
+    if mp > 1:
+        dims = [spec_mp_dim(sp, "mp") for sp in
+                T.leaves(engine_param_specs(params, axes, rules=rules))]
+    else:
+        dims = [None] * len(flat)
+    local = [torch.empty(tuple(x.shape[:d]) + (x.shape[d] // mp,)
+                         + tuple(x.shape[d + 1:]), dtype=x.dtype,
+                         device="meta") if d is not None else x
+             for x, d in zip(flat, dims)]
+    nbytes = [math.prod(x.shape) * x.element_size() for x in local]
+    calls = [(n, "mp", mp) for n, d in zip(nbytes, dims) if d is not None]
+    if bucket_bytes > 0:
+        heads = T.leaves(head_mask_tree(params, head_filter))
+        units = [b.nbytes for b in assign_buckets(local, heads, bucket_bytes)]
+    else:
+        units = nbytes
+    for n in units:
+        calls += [(n, "data", k), (n, "group", g)]
+    calls += [(LOSS_BYTES, "data", k), (LOSS_BYTES * k, "group", g)]
+    by_axis = dict.fromkeys(("group", "data", "mp"), 0)
+    for n, axis, size in calls:
+        by_axis[axis] += (size - 1) * n
+    total = sum(by_axis.values())
+    return ExchangeBytes(sent=total, received=total, gathers=len(calls),
+                         by_axis=by_axis)
 
 
 class StrandedDevicesWarning(UserWarning):

@@ -7,8 +7,10 @@ Axes, in the JAX package's canon:
   data   synchronous data parallelism within a group
   mp     model parallelism within a worker (param/momentum shards)
 
-The production and dry-run meshes of the JAX package (and its host-smoke
-mesh for the dry-run lane) belong to ROADMAP item A15.
+The JAX package's production and host-smoke meshes exist for its XLA
+dry-run; the port's dry-run (``launch.dryrun``) reckons on meta tensors
+over a layout given as axis sizes, ``{"group": g, "data": k, "mp": mp}``,
+and makes no mesh.
 """
 from __future__ import annotations
 

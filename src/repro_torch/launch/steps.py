@@ -14,13 +14,15 @@ the flash kernel is forward-only, as the reference's Pallas kernel is, and
 raises if asked for gradients. Prefill may take either arm; decode runs
 ``transformer.decode_step``. Prefill and decode run under ``no_grad``.
 
-``params_specs`` is the JAX ``params_specs`` (an ``eval_shape`` of
-``init_params``): the full-size param tree on ``torch.device("meta")``,
-every shape and dtype and nothing allocated, for ``launch.params_util``.
-Of the JAX module's ``batch_specs`` only the modality stubs' shapes are
-kept (``modality_inputs``); it, ``cache_specs_struct`` and
-``make_train_step``'s ``grad_shardings`` are otherwise ``ShapeDtypeStruct``
-/ GSPMD helpers of the XLA dry-run lane (ROADMAP Queue A item 15).
+``params_specs``, ``batch_specs`` and ``cache_specs_struct`` are the JAX
+functions of those names (``eval_shape`` / ``ShapeDtypeStruct`` trees):
+the full-size param tree, a step's data inputs and a decode cache on
+``torch.device("meta")``, every shape and dtype and nothing allocated.
+They feed ``launch.params_util`` and the meta-device dry-run
+(``launch.dryrun``), which counts the steps below on them. The JAX
+``make_train_step``'s ``grad_shardings`` pins GSPMD layouts and has no
+counterpart: the port's multi-device engine shards explicitly
+(``engine.spmd``).
 """
 from __future__ import annotations
 
@@ -54,6 +56,12 @@ def supports_shape(cfg: ArchConfig, shape: InputShape) -> bool:
     return not (cfg.arch_type == "encdec" and shape.name == "long_500k")
 
 
+#: the stub modality input of each family: (batch key, config field of
+#: its length)
+_MODALITY = {"encdec": ("enc_emb", "encoder_seq"),
+             "vlm": ("img_emb", "num_image_tokens")}
+
+
 def modality_inputs(cfg: ArchConfig, lead: tuple, *, seed: int = 0,
                     device="cuda") -> dict:
     """The stub modality inputs of a batch with leading axes ``lead`` (e.g.
@@ -61,15 +69,53 @@ def modality_inputs(cfg: ArchConfig, lead: tuple, *, seed: int = 0,
     d)}`` for encdec, ``{"img_emb": (*lead, num_image_tokens, d)}`` for
     vlm, ``{}`` otherwise; standard normals from ``numpy`` seeded by
     ``seed``, in the compute dtype on ``device``."""
-    key, n = {"encdec": ("enc_emb", cfg.encoder_seq),
-              "vlm": ("img_emb", cfg.num_image_tokens)}.get(cfg.arch_type,
-                                                           (None, 0))
+    key, n = _MODALITY.get(cfg.arch_type, (None, 0))
     if key is None:
         return {}
     x = np.random.default_rng(seed).standard_normal(
-        tuple(lead) + (n, cfg.d_model), dtype=np.float32)
+        tuple(lead) + (getattr(cfg, n), cfg.d_model), dtype=np.float32)
     return {key: torch.from_numpy(x).to(device=device,
                                         dtype=cfg.dtype("compute"))}
+
+
+def batch_specs(cfg: ArchConfig, shape: InputShape, *,
+                grad_accum: int = 1) -> dict:
+    """The data inputs of ``shape``'s step on the meta device, as the JAX
+    ``batch_specs`` shapes them: "tokens" and "labels" (B, S) int32 for
+    training, with a leading microbatch axis ``(grad_accum, B //
+    grad_accum, S)`` when accumulating; "tokens" (B, S) for prefill and
+    (B, 1) for decode; plus the modality stubs in the compute dtype
+    (``modality_inputs``'s keys and shapes)."""
+    B, S = shape.global_batch, shape.seq_len
+    meta = torch.device("meta")
+    if shape.kind == "train":
+        if grad_accum > 1:
+            if B % grad_accum:
+                raise ValueError(f"batch {B} not divisible by grad_accum "
+                                 f"{grad_accum}")
+            lead = (grad_accum, B // grad_accum)
+        else:
+            lead = (B,)
+        batch = {k: torch.empty(lead + (S,), dtype=torch.int32, device=meta)
+                 for k in ("tokens", "labels")}
+    else:
+        lead = (B,)
+        batch = {"tokens": torch.empty(
+            (B, S if shape.kind == "prefill" else 1), dtype=torch.int32,
+            device=meta)}
+    key, n = _MODALITY.get(cfg.arch_type, (None, 0))
+    if key is not None:
+        batch[key] = torch.empty(lead + (getattr(cfg, n), cfg.d_model),
+                                 dtype=cfg.dtype("compute"), device=meta)
+    return batch
+
+
+def cache_specs_struct(cfg: ArchConfig, shape: InputShape):
+    """``transformer.init_cache`` for ``shape``'s batch and length at its
+    ``effective_window``, on the meta device."""
+    return M.init_cache(cfg, shape.global_batch, shape.seq_len,
+                        effective_window(cfg, shape),
+                        device=torch.device("meta"))
 
 
 def params_specs(cfg: ArchConfig, seed: int = 0):

@@ -156,25 +156,67 @@ def run_case(c, rank: int, world: int, out_dir: str) -> dict:
     return out
 
 
-def rank_main(rank: int, world: int, rdv: str, out_dir: str, cases) -> None:
+def rank_main(rank: int, world: int, rdv: str, out_dir: str, cases,
+              run=run_case) -> None:
     import torch.distributed as dist
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{rdv}", rank=rank,
                             world_size=world)
     try:
-        res = {c["name"]: run_case(c, rank, world, out_dir)
-               for c in cases}
+        res = {c["name"]: run(c, rank, world, out_dir) for c in cases}
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
 
 
-def spawn(tmp_path, world: int, cases):
-    """Run ``cases`` on ``world`` gloo ranks; -> per-rank result dicts."""
+def exchange_case(c, rank: int, world: int, out_dir: str) -> dict:
+    """One ``SpmdStep`` round of case ``c`` with ``dist.all_gather``
+    wrapped: the (bytes, group size) of each gather this rank made, beside
+    ``engine.spmd.exchange_bytes``'s reckoning from the full trees."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.core import tree as T
+    from repro_torch.engine import spmd as S
+    from repro_torch.launch.mesh import make_group_mesh
+    from repro_torch.models import cnn as C
+    cfg, params, mom = np_inputs(c["arch"], c["seed"])
+    params = T.tree_map(torch.from_numpy, params)
+    mom = T.tree_map(torch.from_numpy, mom)
+    bb = S.DEFAULT_BUCKET_BYTES if c["bucket_bytes"] is None \
+        else c["bucket_bytes"]
+    mesh = make_group_mesh(c["g"], c["k"], c["mp"], device_type="cpu")
+    step = S.make_spmd_grouped_step(lambda p, b: C.loss_fn(p, b, cfg), mesh,
+                                    lr=LR, momentum=MU,
+                                    head_filter=C.head_filter,
+                                    bucket_bytes=bb)
+    p, v = step.shard(params), step.shard(mom)
+    n = BATCH // (c["g"] * c["k"])
+    local = {k: torch.from_numpy(x[:n])
+             for k, x in next(iter(batches(cfg, c["seed"]))).items()}
+    real, seen = dist.all_gather, []
+
+    def counted(parts, t, *a, **kw):
+        seen.append((t.numel() * t.element_size(), len(parts)))
+        return real(parts, t, *a, **kw)
+
+    dist.all_gather = counted
+    try:
+        step(p, v, local)
+    finally:
+        dist.all_gather = real
+    ex = S.exchange_bytes(params, {"group": c["g"], "data": c["k"],
+                                   "mp": c["mp"]},
+                          bucket_bytes=bb, head_filter=C.head_filter)
+    return dict(seen=seen, reckoned=dataclasses.asdict(ex))
+
+
+def spawn(tmp_path, world: int, cases, run=run_case):
+    """Run ``cases`` on ``world`` gloo ranks, each through ``run(case,
+    rank, world, out_dir)``; -> per-rank result dicts."""
     import torch.multiprocessing as mp
     mp.spawn(rank_main, args=(world, str(tmp_path / "rdv"), str(tmp_path),
-                              cases), nprocs=world, join=True)
+                              cases, run), nprocs=world, join=True)
     out = []
     for r in range(world):
         with open(tmp_path / f"rank{r}.pkl", "rb") as f:
