@@ -8,7 +8,10 @@ passed over, nothing falls back to the CPU):
 
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: every kernel from its CUDA source in this checkout (in
-   parallel, ``-Xptxas -v`` report printed), timed;
+   parallel, ``-Xptxas -v`` report printed), timed; then each library's
+   SASS (``cuobjdump -sass``): the flash and dgrad libraries must hold
+   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) and no ``HMMA``
+   (mma.sync), the counts printed;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes, bf16 (``atol = rtol = 2e-2``, and a relative RMS error within
    ``1e-2`` of the output's own RMS, which long-context outputs of small
@@ -26,7 +29,9 @@ passed over, nothing falls back to the CPU):
    G = 1 (qwen2-moe-a2.7b: 16 query heads on 16 kv heads), and flash
    attention at recurrentgemma-2b's local attention (hd 256, 10 query
    heads on one kv head, window 2048 at 2 x 4096, ragged at 2100, and a
-   chunk at per-row offsets);
+   chunk at per-row offsets); the wgmma flash kernel's TMA boxes (Sk one
+   key past a box at hd 128 and 256, hd 32's 64-byte swizzle), and its
+   shared memory a block equal to ``ops.smem_bytes`` at every head dim;
 4. kernel timings (CUDA events around device work only, L2 flushed before
    each launch) beside the plain version, one PyTorch library call
    computing the same function (timed here only; the port never calls
@@ -363,6 +368,12 @@ def phase_env(torch) -> str:
     return lines[0]
 
 
+#: the libraries whose products must run on wgmma (SASS HGMMA) with tiles
+#: brought by TMA (UTMALDG), and no mma.sync (HMMA)
+WGMMA_LIBS = ("flash_attention", "dgrad")
+SASS_COUNTED = ("HGMMA", "UTMALDG", "HMMA")
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -370,6 +381,23 @@ def phase_build() -> None:
     log(f"[build] {len(libs)} kernels built in "
         f"{time.perf_counter() - t0:.1f} s: "
         + ", ".join(p.name for p in libs.values()))
+    cuobjdump = Path(_build.nvcc()).with_name("cuobjdump")
+    counts = {}
+    for name in WGMMA_LIBS:
+        dump = subprocess.run([str(cuobjdump), "-sass", str(libs[name])],
+                              capture_output=True, text=True, timeout=300)
+        if dump.returncode:
+            fail(f"cuobjdump -sass {libs[name].name} failed: "
+                 f"{dump.stderr.strip()}")
+        counts[name] = {op: dump.stdout.count(op) for op in SASS_COUNTED}
+        missing = [op for op in ("HGMMA", "UTMALDG") if not counts[name][op]]
+        if missing:
+            fail(f"{name}'s SASS holds no {', '.join(missing)}: its products "
+                 "must run on wgmma with tiles brought by TMA")
+        if counts[name]["HMMA"]:
+            fail(f"{name}'s SASS holds {counts[name]['HMMA']} HMMA "
+                 "(mma.sync): no product of it may leave wgmma")
+    log("[build] SASS " + json.dumps(counts))
 
 
 def paged_inputs(torch, dtype, pos, *, stale=(), ring=False, seed=0,
@@ -496,7 +524,14 @@ def phase_check(torch) -> dict:
                 ("hd64 G=1 causal 4", WHISPER_FLASH, 4, 4, {}),
                 # llama-3.2-vision-90b's self blocks: 64 query heads on 8
                 # kv heads of 128
-                ("hd128 G=8 H=64 causal 512", VISION_FLASH, 512, 512, {})):
+                ("hd128 G=8 H=64 causal 512", VISION_FLASH, 512, 512, {}),
+                # the wgmma kernel's TMA boxes: Sk one key past a box of
+                # keys (128, or 64 at hd 256), hd 32's 64-byte swizzle
+                ("hd128 non-causal Sk one past a box 129", (2, 8, 2, 128),
+                 129, 129, {"causal": False}),
+                ("hd256 G=10 Sk one past a box 65", RG_FLASH, 65, 65, {}),
+                ("hd32 non-causal ragged 200", (2, 8, 2, 32), 200, 200,
+                 {"causal": False})):
             if "q_offsets" in kw:
                 lo, hi = kw["q_offsets"]
                 kw = dict(kw, q_offsets=torch.randint(
@@ -512,6 +547,16 @@ def phase_check(torch) -> dict:
             if dtype is torch.bfloat16:
                 errs["flash_attention"] = max(errs["flash_attention"], e)
             del q, k, v, got, want
+    for dtype in fa.DTYPES:
+        for hd in fa.HEAD_DIMS:
+            if fa.kernel_smem_bytes(dtype, hd) != fa.smem_bytes(dtype, hd):
+                fail(f"flash_attention {dtype} hd {hd}: the kernel asks for "
+                     f"{fa.kernel_smem_bytes(dtype, hd)} bytes of shared "
+                     f"memory, the model says {fa.smem_bytes(dtype, hd)}")
+    log("[check] flash_attention shared memory a block (bf16 / fp32 by hd): "
+        + ", ".join(f"{hd}: {fa.smem_bytes(torch.bfloat16, hd)} / "
+                    f"{fa.smem_bytes(torch.float32, hd)}"
+                    for hd in fa.HEAD_DIMS) + " = the kernel's own figures ok")
     return errs
 
 

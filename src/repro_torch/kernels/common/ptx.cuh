@@ -1,7 +1,8 @@
-// PTX building blocks shared by the port's tensor-core kernels (flash
-// attention, paged decode, the lowering-conv forward and dgrad): cp.async
+// PTX building blocks shared by the port's tensor-core kernels: cp.async
 // copies into shared memory, ldmatrix, mma.sync in bf16, and 3xTF32 on
-// mma.sync m16n8k8.
+// mma.sync m16n8k8 (paged decode, the lowering-conv forward and wgrad); the
+// bf16 packing, the TF32 split and cp.async also feed the wgmma kernels of
+// hopper.cuh (flash attention, dgrad).
 //
 // 3xTF32: every fp32 operand x is split as big = the nearest TF32 and
 // small = x - big (split_tf32), and a product accumulates big*small +

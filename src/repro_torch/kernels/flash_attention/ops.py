@@ -7,7 +7,9 @@ query its absolute position. Returns ``(B, Sq, H, hd)``.
 
 A CUDA tensor launches ``csrc/flash_attention.cu`` (or raises); a CPU
 tensor takes the plain version, ``ref.flash_attention_ref``. Every launch
-adds one to ``flash_attention.launches``.
+adds one to ``flash_attention.launches``. ``smem_bytes`` is the shared
+memory a block of the kernel asks for, the figure the kernel exports
+(``kernel_smem_bytes``).
 """
 from __future__ import annotations
 
@@ -24,9 +26,48 @@ HEAD_DIMS = (32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_GRID_Y = 65535
 
+# the bf16 kernel's tiles (csrc ``wg::Tile``): 128 query rows a block (two
+# warpgroups of 64)
+BF16_QUERY_TILE = 128
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``flash_attention_launch``'s C signature, in order
 ARGTYPES = [_P] * 5 + [_I] * 8 + [ctypes.c_float, _I, _I, _P]
+
+
+def bf16_key_tile(hd: int) -> int:
+    """Keys a tile of the bf16 kernel takes: 128, or 64 at hd 256, where
+    the O accumulator fills the registers."""
+    return 64 if hd == 256 else 128
+
+
+def bf16_stages(hd: int) -> int:
+    """Depth of the bf16 kernel's K/V ring: 3, or 2 at hd 256 (a third
+    stage of 64 keys would not fit beside the 64 KB Q tile)."""
+    return 2 if hd == 256 else 3
+
+
+def smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """Dynamic shared memory one block asks for. bf16: 1024 bytes of
+    alignment slack, the Q tile, K and V tiles for each ring stage,
+    8-byte mbarriers (Q full; K full and V full a stage) and a 4-byte count
+    of the warps done with each stage's K and with its V. fp32: the padded
+    Q, K, V and score tiles and three row vectors."""
+    if dtype == torch.bfloat16:
+        bk, st = bf16_key_tile(hd), bf16_stages(hd)
+        return (1024 + 2 * hd * (BF16_QUERY_TILE + 2 * st * bk)
+                + 8 * (1 + 2 * st) + 4 * 2 * st)
+    if dtype == torch.float32:
+        return 4 * (64 * (hd + 1) + 32 * (hd + 1) + 32 * hd + 64 * 33 + 3 * 64)
+    raise TypeError(f"dtype {dtype} not in {tuple(DTYPES)}")
+
+
+def kernel_smem_bytes(dtype: torch.dtype, hd: int) -> int:
+    """The compiled kernel's own figure, ``flash_attention_smem_bytes``
+    (builds the kernel if needed; a host call, no launch)."""
+    fn = _build.load(KERNEL).flash_attention_smem_bytes
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return fn(hd, DTYPES.get(dtype, -1))
 
 
 def _check(q, k, v, q_offsets) -> None:

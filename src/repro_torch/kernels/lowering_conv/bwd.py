@@ -13,8 +13,9 @@ Plain versions (``wgrad_ref``, ``col2im_ref``, ``dgrad_ref``: the JAX
 ``*_xla`` forms) and the wrappers of the two kernels, both 3xTF32 on
 tensor cores: ``wgrad_cuda`` (``csrc/wgrad.cu``: partial products over
 slices of the M rows, then a sum in slice order) and ``dgrad_cuda``
-(``csrc/dgrad.cu``: dX as one implicit GEMM over the taps, dY gathered on
-the fly; no dCols, no col2im pass).
+(``csrc/dgrad.cu``: dX as one implicit GEMM over the taps on wgmma, W
+split into TF32 big and small halves by a prologue and brought by TMA, dY
+gathered on the fly; no dCols, no col2im pass).
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version. Each wrapper call adds one to its ``launches``.
 
@@ -39,7 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``wgrad_launch``'s C signature, in order
 WGRAD_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
 #: ``dgrad_launch``'s C signature, in order
-DGRAD_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
+DGRAD_ARGTYPES = [_P] * 4 + [_I] * 10 + [_P]
 
 WGRAD_TILE_K = 64              # rows of dW (K) per wgrad block
 WGRAD_STAGE_ROWS = 32          # reduction rows of one wgrad stage
@@ -181,12 +182,21 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape, *,
 wgrad_cuda.launches = 0
 
 
+def dgrad_split_floats(w_shape) -> int:
+    """Floats of dgrad's W scratch: big and small halves of W as
+    (kh*kw*Cin, Cout4) each, Cout4 = Cout rounded up to 4 (16-byte rows,
+    as TMA reads them)."""
+    kh, kw, cin, cout = w_shape
+    return 2 * kh * kw * cin * (-(-cout // 4) * 4)
+
+
 def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
                stride: int = 1, tiles: ConvTiles = None) -> torch.Tensor:
     """dy: (B, Ho, Wo, Cout); w: (kh, kw, Cin, Cout). Returns dX of
-    ``x_shape`` (B, H, W, Cin) in fp32, written once by the kernel (no
-    scratch), in tiles ``tiles.dgrad_bn`` input channels wide (default
-    ``dgrad_block_n(Cin)``)."""
+    ``x_shape`` (B, H, W, Cin) in fp32, written once by the kernel, in
+    tiles ``tiles.dgrad_bn`` input channels wide (default
+    ``dgrad_block_n(Cin)``). The kernel's prologue writes W's TF32 big and
+    small halves to a scratch of ``dgrad_split_floats(w.shape)`` floats."""
     b, h, wd, cin = x_shape
     kh, kw, cin_w, cout = w.shape
     ho, wo = out_hw(h, wd, kh, kw, stride)
@@ -197,9 +207,11 @@ def dgrad_cuda(dy: torch.Tensor, w: torch.Tensor, x_shape, *,
         return dgrad_ref(dy, w, x_shape, stride)
     check_operands(dy=dy, w=w)
     dx = torch.empty(tuple(x_shape), dtype=torch.float32, device=dy.device)
+    wsplit = torch.empty(dgrad_split_floats(w.shape), dtype=torch.float32,
+                         device=dy.device)
     err = _build.launcher("dgrad", DGRAD_ARGTYPES)(
-        dy.data_ptr(), w.data_ptr(), dx.data_ptr(), b, h, wd, cin, kh, kw,
-        stride, cout,
+        dy.data_ptr(), w.data_ptr(), wsplit.data_ptr(), dx.data_ptr(), b, h,
+        wd, cin, kh, kw, stride, cout,
         dgrad_block_n(cin) if tiles is None else tiles.dgrad_bn,
         dy.device.index or 0,
         torch.cuda.current_stream(dy.device).cuda_stream)

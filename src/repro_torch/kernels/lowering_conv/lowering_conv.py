@@ -42,7 +42,9 @@ ARGTYPES = [_P] * 4 + [_I] * 10 + [_P]
 DGRAD_BLOCK_N = (64, 96)
 #: each pass's kernel (``csrc/<name>.cu``)
 PASS_KERNELS = {"fwd": KERNEL, "wgrad": "wgrad", "dgrad": "dgrad"}
-SMEM_STAGES = 3            # every conv kernel's cp.async ring
+SMEM_STAGES = 3            # the forward's and wgrad's cp.async rings
+DGRAD_STAGES = 4           # dgrad's ring (TMA for W, cp.async for dY)
+DGRAD_BLOCK_M = 128        # pixels of a dgrad tile: two consumer warpgroups
 
 
 def dgrad_block_n(c: int) -> int:
@@ -55,18 +57,21 @@ def dgrad_block_n(c: int) -> int:
 
 def smem_bytes(*, pass_: str, block_n: int) -> int:
     """Dynamic shared memory one block of ``pass_``'s kernel asks for at
-    tile width ``block_n``: ``SMEM_STAGES`` stages of fp32 tiles, each
-    row padded against bank conflicts (the ``smem_bytes<BN>()`` of the
-    kernel's source). The counterpart of the JAX ``vmem_bytes``; on the
-    card a block's footprint does not depend on the layer's shape.
+    tile width ``block_n`` (the ``smem_bytes<BN>()`` of the kernel's
+    source). The counterpart of the JAX ``vmem_bytes``; on the card a
+    block's footprint does not depend on the layer's shape.
 
     pass_:
-      "fwd"    A: 64 pixels x (32 + 4) columns gathered from x; B: 32 rows
+      "fwd"    ``SMEM_STAGES`` stages, rows padded against bank conflicts.
+               A: 64 pixels x (32 + 4) columns gathered from x; B: 32 rows
                of K-hat x (BN + 8)
-      "wgrad"  A: 32 rows of the residual x (64 + 8); B: 32 rows of dY x
-               (BN + 8)
-      "dgrad"  A: 64 pixels x (32 + 4) channels of dY; B: BN input
-               channels x (32 + 4)
+      "wgrad"  ``SMEM_STAGES`` stages. A: 32 rows of the residual x
+               (64 + 8); B: 32 rows of dY x (BN + 8)
+      "dgrad"  ``DGRAD_STAGES`` stages of 128-byte swizzled rows (32
+               channels), unpadded. A: ``DGRAD_BLOCK_M`` pixels of dY; B:
+               BN input channels of W's big and of its small half; plus
+               1024 bytes of slack that align the ring to the swizzle and
+               two 8-byte mbarriers a stage (full, empty)
     """
     if block_n not in DGRAD_BLOCK_N:
         raise ValueError(f"block_n {block_n}: the kernels are built for "
@@ -76,7 +81,8 @@ def smem_bytes(*, pass_: str, block_n: int) -> int:
     elif pass_ == "wgrad":
         floats = 32 * (64 + 8 + block_n + 8)
     elif pass_ == "dgrad":
-        floats = (64 + block_n) * 36
+        return (1024 + DGRAD_STAGES * (DGRAD_BLOCK_M + 2 * block_n) * 32 * 4
+                + 16 * DGRAD_STAGES)
     else:
         raise ValueError(f"unknown pass_ {pass_!r} "
                          "(expected fwd | wgrad | dgrad)")

@@ -9,9 +9,10 @@ CUDA kernels' own knobs (``bwd.ConvTiles``).
   the three ring layouts) and refuses an unknown pass or width; the
   compiled kernels' own values are held to it on the card
   (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 17);
-- every candidate fits the budget, the default rule's first; a tiny
-  budget leaves the 64-wide tiles and forces a re-probe of a cached
-  choice that no longer fits;
+- every candidate fits the budget, the default rule's first; a budget
+  under dgrad's 96-wide ring leaves dgrad the 64-wide tile (and forces a
+  re-probe of a cached choice that no longer fits), one under the
+  forward's 64-wide block leaves no forward tile;
 - the cache ignores the batch and respects the stride and the device
   type; a layer never probed runs ``DEFAULT_TILES``, which is the rule
   the kernels ran before the autotuner (the same widths and wgrad split);
@@ -40,7 +41,9 @@ from repro_torch.models import cnn as C
 from repro_torch.obs import spans
 
 CPU = torch.device("cpu")
-BUDGET_64 = 55_296         # every pass's 64-wide block, none of the 96s
+BUDGET_64 = 55_296         # every fwd/wgrad 64-wide block, none of the 96s
+DGRAD_64 = 132_160         # dgrad's 64-wide block: every fwd/wgrad width
+DGRAD_96 = 164_928         # dgrad's 96-wide block, the largest of all
 
 
 @pytest.fixture(autouse=True)
@@ -72,7 +75,7 @@ def _fake_probe(monkeypatch, favor_last=True):
 @pytest.mark.parametrize("pass_,block_n,want", [
     ("fwd", 64, 55_296), ("fwd", 96, 67_584),
     ("wgrad", 64, 55_296), ("wgrad", 96, 67_584),
-    ("dgrad", 64, 55_296), ("dgrad", 96, 69_120)])
+    ("dgrad", 64, DGRAD_64), ("dgrad", 96, DGRAD_96)])
 def test_smem_model_is_the_kernels_ring_layout(pass_, block_n, want):
     assert smem_bytes(pass_=pass_, block_n=block_n) == want
 
@@ -115,7 +118,7 @@ def test_default_tiles_are_the_fixed_rule():
 def test_tile_candidates_fit_the_budget_default_first(layer):
     xs, ws, s = C.conv_layer_shapes(C.CAFFENET, 64)[layer]
     dflt = A.DEFAULT_TILES(ws)
-    for budget in (A.budget_bytes_of(CPU), 67_584, BUDGET_64):
+    for budget in (A.budget_bytes_of(CPU), DGRAD_96, DGRAD_64):
         cands = A.tile_candidates(xs, ws, s, budget_bytes=budget,
                                   device=CPU)
         for p in ("fwd", "dgrad"):
@@ -123,7 +126,7 @@ def test_tile_candidates_fit_the_budget_default_first(layer):
                        for bn in cands[p])
         assert all(smem_bytes(pass_="wgrad", block_n=bn) <= budget
                    for bn, _ in cands["wgrad"])
-        if budget >= 69_120:
+        if budget >= DGRAD_96:
             assert cands["fwd"][0] == dflt.fwd_bn
             assert cands["dgrad"][0] == dflt.dgrad_bn
             assert cands["wgrad"][0] == (dflt.wgrad_bn, dflt.wgrad_blocks)
@@ -135,9 +138,14 @@ def test_tile_candidates_fit_the_budget_default_first(layer):
                                         cout, bn, blocks))
                   for bn, blocks in cands["wgrad"]]
         assert len(set(splits)) == len(splits)
-    tiny = A.tile_candidates(xs, ws, s, budget_bytes=BUDGET_64, device=CPU)
-    assert tiny["fwd"] == tiny["dgrad"] == [64]
-    assert {bn for bn, _ in tiny["wgrad"]} == {64}
+    # dgrad's wgmma ring is the largest block: a budget under its 96-wide
+    # tile leaves it the 64-wide one while fwd and wgrad keep both widths
+    tiny = A.tile_candidates(xs, ws, s, budget_bytes=DGRAD_64, device=CPU)
+    assert tiny["dgrad"] == [64]
+    assert sorted(tiny["fwd"]) == [64, 96]
+    assert {bn for bn, _ in tiny["wgrad"]} == {64, 96}
+    with pytest.raises(ValueError, match="no dgrad tile fits"):
+        A.tile_candidates(xs, ws, s, budget_bytes=DGRAD_64 - 1, device=CPU)
     with pytest.raises(ValueError, match="no fwd tile fits"):
         A.tile_candidates(xs, ws, s, budget_bytes=BUDGET_64 - 1, device=CPU)
 
@@ -177,10 +185,10 @@ def test_autotune_caches_per_shape_stride_and_device(monkeypatch):
         assert A.cached_tiles(*key) == A.DEFAULT_TILES(key[1])
     # a SMALLER budget the cached choice does not fit forces a re-probe
     calls = _fake_probe(monkeypatch)
-    assert A._max_smem(t1) > BUDGET_64
-    t2 = A.autotune_tiles(x_shape, w_shape, 1, budget_bytes=BUDGET_64,
+    assert A._max_smem(t1) > DGRAD_64
+    t2 = A.autotune_tiles(x_shape, w_shape, 1, budget_bytes=DGRAD_64,
                           device=CPU, iters=1)
-    assert calls and A._max_smem(t2) <= BUDGET_64
+    assert calls and A._max_smem(t2) <= DGRAD_64
     assert A.cached_tiles(x_shape, w_shape, 1, CPU) == t2
     # a larger one keeps the cached choice
     monkeypatch.setattr(A.timing, "probe", lambda *a, **k: (_ for _ in ()

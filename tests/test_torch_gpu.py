@@ -38,7 +38,13 @@ three conv kernels at the fp32 limits above (partial tiles: Cout 96 at
 BN 64, Cout 256 and Cin 256 at BN 96), ``smem_bytes`` equal to each
 compiled kernel's export, an unbuilt width refused, ``DEFAULT_TILES``
 bitwise the launch that leaves the tiles out, and the launcher's
-autotune probe and ``--trace-out`` on caffenet-smoke.
+autotune probe and ``--trace-out`` on caffenet-smoke. The wgmma + TMA
+kernels at their edges: the flash kernel's key tiles one key past a TMA
+box (hd 128 and 256), hd 32's 64-byte swizzle, a batch row whose keys end
+mid-box while the next row's are NaN (never read), its shared memory equal
+to ``ops.smem_bytes``; dgrad's 128-pixel tiles (one pixel past, whole
+tiles), a one-channel stage with 4-byte copies and stride 3, at both
+widths.
 """
 import dataclasses
 import warnings
@@ -199,6 +205,62 @@ def test_flash_bf16_tensor_core_kernel_edges(card, hd, case):
     assert ((got - want).norm() / want.norm()).item() <= 1e-2
 
 
+@pytest.mark.parametrize("case", [
+    # (hd, Sq, Sk, kwargs): Sk one key past a TMA box of keys (128 keys,
+    # 64 at hd 256), causal, windowed and not; hd 32's 64-byte swizzle with
+    # its keys ending mid-box
+    (128, 129, 129, {}),
+    (256, 65, 65, {"window": 40}),
+    (64, 129, 129, {"causal": False}),
+    (32, 200, 200, {"causal": False}),
+    (32, 150, 150, {"window": 70})],
+    ids=["sk-box-plus-one-hd128", "sk-box-plus-one-hd256-window",
+         "sk-box-plus-one-hd64-noncausal", "hd32-swizzle64-noncausal",
+         "hd32-swizzle64-window"])
+def test_flash_bf16_wgmma_box_edges(card, case):
+    hd, sq, sk, kw = case
+    kw = {"causal": True, **kw}
+    g = torch.Generator(device=card).manual_seed(hd + sk)
+    b, h, kh = 2, 8, 2
+    q = torch.randn(b, sq, h, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(b, sk, kh, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(b, sk, kh, hd, generator=g, device=card).bfloat16()
+    before = fa_ops.flash_attention.launches
+    got = fa_ops.flash_attention(q, k, v, **kw).float()
+    assert fa_ops.flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, **kw).float()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+def test_flash_bf16_reads_no_key_of_the_next_batch_row(card, hd):
+    """Batch row 0's 150 keys end mid-box; row 1's keys and values are
+    NaN. The 4-D tensor maps zero-fill row 0's last box past Sk, so its
+    outputs stay finite and match the plain version (a box that ran on
+    into row 1 would carry a NaN value into them, times p = 0)."""
+    g = torch.Generator(device=card).manual_seed(hd)
+    b, h, kh, s = 2, 4, 2, 150
+    q = torch.randn(b, s, h, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(b, s, kh, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(b, s, kh, hd, generator=g, device=card).bfloat16()
+    k[1] = float("nan")
+    v[1] = float("nan")
+    got = fa_ops.flash_attention(q, k, v, causal=False)[0].float()
+    want = flash_attention_ref(q[:1], k[:1], v[:1], causal=False)[0].float()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=2e-2, rtol=2e-2)
+    assert ((got - want).norm() / want.norm()).item() <= 1e-2
+
+
+def test_flash_shared_memory_model_is_the_kernels(card):
+    for hd in fa_ops.HEAD_DIMS:
+        for dtype in fa_ops.DTYPES:
+            assert fa_ops.kernel_smem_bytes(dtype, hd) == \
+                fa_ops.smem_bytes(dtype, hd)
+    assert fa_ops.kernel_smem_bytes(torch.bfloat16, 48) == -1
+
+
 def _cfg(window=None):
     return ArchConfig(name=f"t-gpu-w{window}", arch_type="dense",
                       num_layers=2, d_model=256, num_heads=4,
@@ -342,6 +404,33 @@ def test_conv_kernels_match_plain(card, x_shape, w_shape, stride):
     assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w.shape), dw)  # no atomics
     dx = lc_bwd.dgrad_cuda(dy, w, x.shape, stride=stride)
     _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x.shape, stride))
+
+
+@pytest.mark.parametrize("block_n", [64, 96])
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((1, 3, 43, 40), (3, 3, 40, 24), 1),    # M = 129; Cout < one stage
+    ((3, 8, 16, 100), (2, 2, 100, 33), 1),  # M = 3 x 128; Cout 33: 4-byte copies
+    ((2, 14, 14, 64), (4, 4, 64, 96), 3)],  # stride 3
+    ids=["M-tile-plus-one", "whole-tiles-cout33", "stride3"])
+def test_dgrad_wgmma_tile_edges(card, x_shape, w_shape, stride, block_n):
+    """The wgmma kernel's edges: 128-pixel tiles (one pixel past, whole),
+    a stage of one output channel, W boxes past Cin and Cout (zero-filled
+    by TMA), at both widths; the same bits on a second call."""
+    g = torch.Generator(device=card).manual_seed(sum(x_shape) + block_n)
+    kh, kw = w_shape[:2]
+    ho = (x_shape[1] - kh) // stride + 1
+    wo = (x_shape[2] - kw) // stride + 1
+    w = torch.randn(w_shape, generator=g, device=card) * 0.05
+    dy = torch.randn((x_shape[0], ho, wo, w_shape[3]), generator=g,
+                     device=card)
+    tiles = dataclasses.replace(lc_bwd.default_tiles(w_shape),
+                                dgrad_bn=block_n)
+    before = lc_bwd.dgrad_cuda.launches
+    dx = lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride, tiles=tiles)
+    assert lc_bwd.dgrad_cuda.launches == before + 1
+    _fp32_close(dx, lc_bwd.dgrad_ref(dy, w, x_shape, stride))
+    assert torch.equal(lc_bwd.dgrad_cuda(dy, w, x_shape, stride=stride,
+                                         tiles=tiles), dx)
 
 
 @pytest.mark.parametrize("x_shape,w_shape,stride", [

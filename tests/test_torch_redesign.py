@@ -14,13 +14,23 @@ on numpy-seeded inputs, against the JAX package:
   small = x - big truncated to TF32, both by bit masking; big*small +
   small*big + big*big) within 1e-5 relative RMS of ``dgrad_xla`` at
   CaffeNet's conv2-5 kernel shapes (reduced batch and image), while one
-  TF32 product misses that limit.
+  TF32 product misses that limit. The wgmma kernel's order: the rows in
+  blocks of 64 or 128 pixels, each stage's three products taken step by
+  step over its four 8-channel steps (big*small, small*big, big*big), in
+  fp32 against ``dgrad_xla`` and ``dgrad_pallas`` (interpret) at strides
+  1, 2 and 4, in 3xTF32 against ``dgrad_xla`` at conv2-5's kernel shapes.
 - **flash** (``csrc/flash_attention.cu``, bf16 path): the blocked flash
   recurrence with 64-key tiles, the kernel's causal and window tile skips,
   masks only on edge tiles and p rounded per tile, against JAX
   ``flash_attention_pallas(..., interpret=True)`` and the port's
   ``flash_attention_ref``, in fp32 (1e-5) and bf16 (2e-2 and relative RMS
-  1e-2, the card's limits), for GQA, windows, ragged Sk and q_offsets.
+  1e-2, the card's limits), for GQA, windows, ragged Sk and q_offsets;
+  again at the wgmma kernel's tiles (128 queries a block, 128 keys a tile,
+  64 at hd 256, p as 2^(x log2 e)), with cases at its edges (Sk one key
+  past a tile, a window that skips whole 128-key tiles, hd 128 and 256).
+- **shared memory**: the flash kernel's block (both dtypes, every head
+  dim) and dgrad's (both widths) fit the 232,448 bytes an sm_90 block may
+  use.
 - **paged decode** (``csrc/paged_attention.cu``): the live keys cut into
   16-slot tiles and split over ``paged_splits`` blocks as the kernel cuts
   them, the bf16 kernel's four warps taking every fourth tile of a split
@@ -62,16 +72,20 @@ from repro.kernels.lowering_conv.lowering_conv import lowering_conv_pallas
 from repro.kernels.lowering_conv.ref import lower as j_lower
 from repro.kernels.paged_attention.paged_attention import \
     paged_attention_pallas
+from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.lowering_conv import bwd
+from repro_torch.kernels.lowering_conv import lowering_conv as lc
 from repro_torch.kernels.lowering_conv.ref import lower
 from repro_torch.kernels.paged_attention import ops as pa
 from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                      valid_mask)
 
 STAGE = 32          # output channels of one tap per dgrad stage
-KEY_TILE = 64       # keys per flash tile
-QUERY_TILE = 64     # queries per flash block
+STEP = 8            # channels of one TF32 wgmma step (k8)
+KEY_TILE = 64       # keys per flash tile (the mma.sync kernel's)
+QUERY_TILE = 64     # queries per flash block (the mma.sync kernel's)
+SMEM_LIMIT = 232448  # shared memory an sm_90 block may use
 
 
 def _rel_rms(got, want) -> float:
@@ -203,12 +217,115 @@ def test_dgrad_tile_width_pads_cin_least(cin, want):
     assert bwd.dgrad_block_n(cin) == want
 
 
+def _step_product(a, b, mode):
+    """One stage's sum as the wgmma kernel takes it: a fresh tile, the
+    stage's 8-channel steps in order, each step's products added one after
+    the other (3xTF32: big*small, small*big, big*big)."""
+    part = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for k0 in range(0, a.shape[1], STEP):
+        ak, bk = a[:, k0:k0 + STEP], b[k0:k0 + STEP]
+        if mode == "fp32":
+            part = part + ak @ bk
+            continue
+        ab, bb = tf32(ak), tf32(bk)
+        asm, bsm = tf32_truncated(ak - ab), tf32_truncated(bk - bb)
+        part = part + ab @ bsm
+        part = part + asm @ bb
+        part = part + ab @ bb
+    return part
+
+
+def wgmma_dgrad(dy, w, x_shape, stride, mode="fp32", block_m=128):
+    """The wgmma kernel's dX: the rows (pixels) in blocks of ``block_m``,
+    each block owning its rows; per block the taps in (i, j) order, per
+    tap the stages of 32 output channels, each stage summed apart in
+    8-channel steps (``_step_product``) and added to the running sum. W's
+    big and small halves are split once, before the product (the kernel's
+    prologue): the same values as a split per stage."""
+    b, h, wd, cin = x_shape
+    kh, kw, _, cout = w.shape
+    ho, wo = dy.shape[1], dy.shape[2]
+    taps = []
+    for i in range(kh):
+        for j in range(kw):
+            a = torch.zeros((b, h, wd, cout), dtype=torch.float32)
+            a[:, i:i + (ho - 1) * stride + 1:stride,
+              j:j + (wo - 1) * stride + 1:stride] = dy
+            taps.append((a.reshape(-1, cout), w[i, j].T))   # (Cout, Cin)
+    m = b * h * wd
+    dx = torch.zeros((m, cin), dtype=torch.float32)
+    for r0 in range(0, m, block_m):
+        acc = torch.zeros((min(block_m, m - r0), cin), dtype=torch.float32)
+        for a, wt in taps:
+            for n0 in range(0, cout, STAGE):
+                acc = acc + _step_product(a[r0:r0 + block_m, n0:n0 + STAGE],
+                                          wt[n0:n0 + STAGE], mode)
+        dx[r0:r0 + block_m] = acc
+    return dx.reshape(x_shape)
+
+
+@pytest.mark.parametrize("stride,x_shape,w_shape", [
+    (1, (2, 11, 11, 70), (3, 3, 70, 50)),       # Cin, Cout fill no tile
+    (2, (2, 13, 13, 37), (5, 5, 37, 45)),       # taps off the lattice
+    (4, (2, 23, 23, 3), (11, 11, 3, 35))])      # conv1-like, 121 taps
+def test_wgmma_dgrad_in_step_order_matches_jax(stride, x_shape, w_shape):
+    dy, w = _dgrad_inputs(x_shape, w_shape, stride, seed=stride)
+    got = wgmma_dgrad(torch.from_numpy(dy), torch.from_numpy(w), x_shape,
+                      stride)
+    want_xla = np.asarray(jbwd.dgrad_xla(jnp.asarray(dy), jnp.asarray(w),
+                                         x_shape, stride))
+    want_pallas = np.asarray(jbwd.dgrad_pallas(
+        jnp.asarray(dy), jnp.asarray(w), x_shape, stride=stride, bp=1,
+        interpret=True))
+    assert _rel_max(got, want_xla) <= 1e-5
+    assert _rel_max(got, want_pallas) <= 1e-5
+
+
+@pytest.mark.parametrize("block_m", [64, 128])
+@pytest.mark.parametrize("layer,x_shape,w_shape", [
+    ("conv2", (2, 9, 9, 96), (5, 5, 96, 256)),
+    ("conv3", (2, 7, 7, 256), (3, 3, 256, 384)),
+    ("conv4", (2, 6, 6, 384), (3, 3, 384, 384)),
+    ("conv5", (2, 5, 5, 384), (3, 3, 384, 256))])
+def test_wgmma_3xtf32_dgrad_in_step_order_holds_the_fp32_limit(
+        layer, x_shape, w_shape, block_m):
+    """The step order at the kernel's 128-pixel tiles and the 64-pixel
+    tiles of the kernel before it, on CaffeNet's kernel shapes with the
+    card's inputs (batch 2, reduced image), at the limits the tap-order
+    oracle is held to."""
+    dy, w = _dgrad_inputs(x_shape, w_shape, 1, seed=len(layer) + w_shape[3])
+    want = np.asarray(jbwd.dgrad_xla(jnp.asarray(dy), jnp.asarray(w),
+                                     x_shape, 1))
+    three = wgmma_dgrad(torch.from_numpy(dy), torch.from_numpy(w), x_shape,
+                        1, mode="3xtf32", block_m=block_m)
+    assert _rel_rms(three, want) <= 1e-5
+    assert _rel_max(three, want) <= 1e-4
+
+
+@pytest.mark.parametrize("block_n", lc.DGRAD_BLOCK_N)
+def test_dgrad_shared_memory_fits_a_block(block_n):
+    """The wgmma ring (4 stages of 128 pixels and BN channels of W's big
+    and small halves, 128-byte rows) fits an sm_90 block."""
+    want = (1024 + lc.DGRAD_STAGES * (lc.DGRAD_BLOCK_M + 2 * block_n) * 128
+            + 16 * lc.DGRAD_STAGES)
+    assert lc.smem_bytes(pass_="dgrad", block_n=block_n) == want
+    assert want <= SMEM_LIMIT
+
+
+def test_dgrad_split_scratch_rows_are_16_byte_aligned():
+    """W's big and small halves, Cout rounded up to 4 floats a row (TMA
+    reads rows on 16-byte strides)."""
+    assert bwd.dgrad_split_floats((5, 5, 96, 256)) == 2 * 25 * 96 * 256
+    assert bwd.dgrad_split_floats((3, 3, 70, 50)) == 2 * 9 * 70 * 52
+    assert bwd.dgrad_split_floats((3, 3, 8, 33)) == 2 * 9 * 8 * 36
+
+
 # ---------------------------------------------------------------------------
 # flash: the blocked recurrence with the kernel's tiles and skips
 # ---------------------------------------------------------------------------
 
-def _key_tiles(pmin, pmax, sk, causal, window):
-    """[t_begin, t_end) of the kernel's 64-key tiles for a block of stored
+def _key_tiles(pmin, pmax, sk, causal, window, key_tile=KEY_TILE):
+    """[t_begin, t_end) of the kernel's key tiles for a block of stored
     query positions pmin..pmax: past the last row's causal edge is skipped;
     wholly before the first row's window start is skipped unless some row's
     window holds no key at all."""
@@ -216,15 +333,21 @@ def _key_tiles(pmin, pmax, sk, causal, window):
     kbeg = 0
     if window is not None and window >= 1 and pmax - window + 1 <= sk - 1:
         kbeg = max(0, pmin - window + 1)
-    return kbeg // KEY_TILE, -(-kend // KEY_TILE)
+    return kbeg // key_tile, -(-kend // key_tile)
 
 
-def blocked_flash(q, k, v, *, causal=True, window=None, q_offsets=None):
+def blocked_flash(q, k, v, *, causal=True, window=None, q_offsets=None,
+                  query_tile=QUERY_TILE, key_tile=KEY_TILE, exp2=False):
     """The bf16 kernel's recurrence in plain PyTorch: per (batch row,
-    64-query block), the kept 64-key tiles in order; scores in fp32 times
-    the scale, masks only on edge tiles (-1e30, keys past Sk -inf), m from
-    -1e30, l from the fp32 p, p rounded to q's type for PV. Returns
-    (out, number of key tiles skipped)."""
+    query block), the kept key tiles in order; scores in fp32 times the
+    scale, masks only on edge tiles (-1e30, keys past Sk -inf), m from
+    -1e30, l from the fp32 p, p rounded to q's type for PV. The tiles
+    default to the mma.sync kernel's 64 x 64; ``exp2`` takes exp(x) as
+    exp2(x * log2 e), as the wgmma kernel does. Returns (out, number of
+    key tiles skipped)."""
+    def exp(x):
+        return torch.exp2(x * math.log2(math.e)) if exp2 else torch.exp(x)
+
     b, sq, h, hd = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -235,29 +358,29 @@ def blocked_flash(q, k, v, *, causal=True, window=None, q_offsets=None):
         off = 0 if q_offsets is None else int(q_offsets[bi])
         kf = k[bi].float().repeat_interleave(g, dim=1)       # (Sk, H, hd)
         vf = v[bi].repeat_interleave(g, dim=1)
-        for q0 in range(0, sq, QUERY_TILE):
-            rows = min(QUERY_TILE, sq - q0)
+        for q0 in range(0, sq, query_tile):
+            rows = min(query_tile, sq - q0)
             pmin, pmax = off + q0, off + q0 + rows - 1
             qf = q[bi, q0:q0 + rows].float()                 # (rows, H, hd)
             qpos = torch.arange(pmin, pmax + 1)[:, None]
             m = torch.full((h, rows), -1e30)
             l = torch.zeros((h, rows))
             acc = torch.zeros((h, rows, hd))
-            t0, t1 = _key_tiles(pmin, pmax, sk, causal, window)
-            skipped += t0 + (-(-sk // KEY_TILE) - t1)
+            t0, t1 = _key_tiles(pmin, pmax, sk, causal, window, key_tile)
+            skipped += t0 + (-(-sk // key_tile) - t1)
             for t in range(t0, t1):
-                k0 = t * KEY_TILE
-                kpos = torch.arange(k0, k0 + KEY_TILE)[None, :]
-                kt = torch.zeros((KEY_TILE, h, hd))
-                vt = torch.zeros((KEY_TILE, h, hd), dtype=q.dtype)
-                n = min(KEY_TILE, sk - k0)
+                k0 = t * key_tile
+                kpos = torch.arange(k0, k0 + key_tile)[None, :]
+                kt = torch.zeros((key_tile, h, hd))
+                vt = torch.zeros((key_tile, h, hd), dtype=q.dtype)
+                n = min(key_tile, sk - k0)
                 kt[:n], vt[:n] = kf[k0:k0 + n], vf[k0:k0 + n]
                 s = torch.einsum("qhd,khd->hqk", qf, kt) * scale
-                edge = (k0 + KEY_TILE > sk
-                        or (causal and k0 + KEY_TILE - 1 > pmin)
+                edge = (k0 + key_tile > sk
+                        or (causal and k0 + key_tile - 1 > pmin)
                         or (window is not None and k0 < pmax - window + 1))
                 if edge:
-                    ok = torch.ones((rows, KEY_TILE), dtype=torch.bool)
+                    ok = torch.ones((rows, key_tile), dtype=torch.bool)
                     if causal:
                         ok &= kpos <= qpos
                     if window is not None:
@@ -265,8 +388,8 @@ def blocked_flash(q, k, v, *, causal=True, window=None, q_offsets=None):
                     s = torch.where(ok, s, torch.tensor(-1e30))
                     s = torch.where(kpos >= sk, torch.tensor(-math.inf), s)
                 m_new = torch.maximum(m, s.amax(-1))
-                alpha = torch.exp(m - m_new)
-                p = torch.exp(s - m_new[..., None])
+                alpha = exp(m - m_new)
+                p = exp(s - m_new[..., None])
                 l = l * alpha + p.sum(-1)
                 pv = torch.einsum("hqk,khd->hqd", p.to(q.dtype).float(),
                                   vt.float())
@@ -343,6 +466,61 @@ def test_blocked_flash_matches_jax_pallas_and_the_plain_version(name, dtype):
         torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
         if dtype == torch.bfloat16:
             assert _rel_rms(got.float(), want) <= 1e-2
+
+
+WGMMA_FLASH_CASES = {
+    **FLASH_CASES,
+    "Sk one key past a 128-key tile": (2, 4, 2, 32, 129, 129, False, None,
+                                       None),
+    "window skips leading 128-key tiles": (1, 4, 2, 32, 400, 400, True, 40,
+                                           None),
+    "hd 128 chunk at offsets": (2, 4, 2, 128, 40, 250, True, None, (0, 210)),
+    "hd 256 window, 64-key tiles": (1, 4, 1, 256, 150, 150, True, 64, None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", list(WGMMA_FLASH_CASES))
+def test_wgmma_blocked_flash_matches_jax_pallas_and_the_plain_version(
+        name, dtype):
+    """The recurrence at the wgmma kernel's tiles: 128 queries a block (two
+    warpgroups of 64, one skip range for the block), 128 keys a tile (64 at
+    hd 256), p by exp2."""
+    case = WGMMA_FLASH_CASES[name]
+    hd, causal, window = case[3], case[6], case[7]
+    q, k, v, offs = _flash_inputs(case, dtype, seed=len(name))
+    got, skipped = blocked_flash(
+        q, k, v, causal=causal, window=window, q_offsets=offs,
+        query_tile=fa.BF16_QUERY_TILE,
+        key_tile=fa.bf16_key_tile(hd), exp2=True)
+    if name == "window skips leading 128-key tiles":
+        assert skipped > 0
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for want in (_jax_flash(q, k, v, causal=causal, window=window,
+                            q_offsets=offs),
+                 flash_attention_ref(q, k, v, causal=causal, window=window,
+                                     q_offsets=offs).float()):
+        torch.testing.assert_close(got.float(), want, atol=tol, rtol=tol)
+        if dtype == torch.bfloat16:
+            assert _rel_rms(got.float(), want) <= 1e-2
+
+
+@pytest.mark.parametrize("hd", list(fa.HEAD_DIMS))
+def test_flash_shared_memory_fits_a_block(hd):
+    """bf16: the Q tile (128 rows), the ring's stages of K and V tiles (3,
+    2 at hd 256), the mbarriers and the stages' counts of warps done, with
+    the alignment slack; fp32: the padded tiles."""
+    for dtype in (torch.float32, torch.bfloat16):
+        assert 0 < fa.smem_bytes(dtype, hd) <= SMEM_LIMIT
+    bk, st = fa.bf16_key_tile(hd), fa.bf16_stages(hd)
+    assert (bk, st) == ((64, 2) if hd == 256 else (128, 3))
+    assert fa.smem_bytes(torch.bfloat16, hd) == (
+        1024 + 2 * hd * (fa.BF16_QUERY_TILE + 2 * st * bk) + 8 * (1 + 2 * st)
+        + 8 * st)
+    # the swizzled tiles start on 1024-byte boundaries after the slack
+    assert (2 * hd * fa.BF16_QUERY_TILE) % 1024 == 0
+    assert (2 * hd * bk) % 1024 == 0
 
 
 # ---------------------------------------------------------------------------
