@@ -9,9 +9,9 @@ passed over, nothing falls back to the CPU):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: every kernel from its CUDA source in this checkout (in
    parallel, ``-Xptxas -v`` report printed), timed; then each library's
-   SASS (``cuobjdump -sass``): the flash and dgrad libraries must hold
-   ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads) and no ``HMMA``
-   (mma.sync), the counts printed;
+   SASS (``cuobjdump -sass``): the flash, lowering-conv, wgrad and dgrad
+   libraries must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads)
+   and no ``HMMA`` (mma.sync), the counts printed;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes, bf16 (``atol = rtol = 2e-2``, and a relative RMS error within
    ``1e-2`` of the output's own RMS, which long-context outputs of small
@@ -59,8 +59,9 @@ passed over, nothing falls back to the CPU):
    forward (its lowered residual bitwise), wgrad and dgrad at the five
    full-width CaffeNet layer shapes at group batch 64 (wgrad called twice
    for the same bits), plus two ragged dgrad tiles and a stride-2 dgrad,
-   and wgrad at the same two ragged tiles, at M no multiple of its 32-row
-   stage and at M < 32, within ``1e-4 * max|want|`` abs and ``1e-5``
+   the forward (its residual bitwise) and wgrad at the same two ragged
+   tiles, wgrad also at M no multiple of its 32-row stage and at M < 32,
+   within ``1e-4 * max|want|`` abs and ``1e-5``
    relative RMS (fp32 sums over K <= 3456 or M <= 193,600 in another
    order than cuBLAS; all three in 3xTF32 on tensor cores);
    timed beside the plain versions and ``F.conv2d`` /
@@ -370,7 +371,7 @@ def phase_env(torch) -> str:
 
 #: the libraries whose products must run on wgmma (SASS HGMMA) with tiles
 #: brought by TMA (UTMALDG), and no mma.sync (HMMA)
-WGMMA_LIBS = ("flash_attention", "dgrad")
+WGMMA_LIBS = ("flash_attention", "lowering_conv", "wgrad", "dgrad")
 SASS_COUNTED = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -1070,6 +1071,9 @@ def phase_check_train(torch) -> dict:
     from repro_torch.kernels.fused_update import ops as fu
     from repro_torch.kernels.fused_update.ref import fused_update_ref
     from repro_torch.kernels.lowering_conv import bwd
+    from repro_torch.kernels.lowering_conv.lowering_conv import \
+        lowering_conv_cuda
+    from repro_torch.kernels.lowering_conv.ref import lower
     from repro_torch.models import cnn as C
     from repro_torch.optim.closed_form import grouped_coeffs
     dev = torch.device("cuda")
@@ -1119,6 +1123,21 @@ def phase_check_train(torch) -> dict:
             torch, f"dgrad {label} x{xs} w{ws} s{s}",
             bwd.dgrad_cuda(dy, w, xs, stride=s), bwd.dgrad_ref(dy, w, xs, s)))
         del w, dy
+    for label, xs, ws in (
+            # the forward's ragged W boxes: Cout 50 and 36 fill no tile
+            ("ragged", (CNN_GROUP_BATCH, 13, 13, 70), (3, 3, 70, 50)),
+            ("ragged", (CNN_GROUP_BATCH, 15, 15, 130), (3, 3, 130, 36))):
+        x = torch.randn(xs, generator=g, device=dev)
+        w = torch.randn(ws, generator=g, device=dev) * 0.05
+        y, low = lowering_conv_cuda(x, w, return_lowered=True)
+        low_ref = lower(x, ws[0], ws[1], 1)
+        errs["lowering_conv"] = max(errs["lowering_conv"], compare_fp32(
+            torch, f"lowering_conv {label} x{xs} w{ws}", y,
+            (low_ref @ w.reshape(-1, ws[3])).reshape(y.shape)))
+        if not torch.equal(low.reshape(low_ref.shape), low_ref):
+            fail(f"lowering_conv {label} x{xs} w{ws}: the lowered residual "
+                 "differs from ref.lower (must be bitwise equal)")
+        del x, w, y, low, low_ref
     for label, m, ws in (
             # the dgrad loop's ragged tiles (Cout 50: 4-byte copies of dY
             # and of the 630-float residual rows), then M off the 32-row
@@ -1360,8 +1379,8 @@ def phase_train(torch):
     batch = next(prefetch(data.batches(1), device=dev))
     phase_train_profile(torch, eng, params, mom, batch,
                         f"full-width CaffeNet round, batch {CNN_BATCH}",
-                        ("lowering_conv_kernel", "wgrad", "dgrad",
-                         "fused_update"))
+                        ("lowering_conv_kernel", "split_transpose",
+                         "slice_sum", "wgrad", "dgrad", "fused_update"))
     sync = Engine(loss_fn, strategy="sync", num_groups=1, **kw)
     params, mom, c1 = _train_run(torch, sync, params, mom, data, 3, "sync")
     log(f"[train] peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
@@ -2789,7 +2808,8 @@ def phase_replay(torch) -> dict:
                  trace=qtrace, lr=0.01, momentum=0.3, device=dev)
     _profile_fn(torch, lambda: eng.replay(params, stacked),
                 f"replay of {REPLAY_COMMITS} commits, queue_sim trace, scan",
-                ("lowering_conv", "wgrad", "dgrad", "fused_update"), reps=1)
+                ("lowering_conv", "split_transpose", "slice_sum", "wgrad",
+                 "dgrad", "fused_update"), reps=1)
     del eng, stacked
     (lf, pf), (ls, ps) = (runs[("round-robin", i)] for i in ("fused",
                                                             "scan"))
@@ -2814,16 +2834,20 @@ AUTOTUNE_ROUNDS = 5            # the launcher's run in (d), the first a warm-up
 
 
 def _todays_tiles(w_shape):
-    """The fixed rule the kernels ran before the autotuner, recomputed here
-    from its definition (the forward's C entry took 96 output channels
-    where they pad no more than 64 do; wgrad and dgrad the same rule on
-    Cout and Cin; wgrad aimed at six blocks an SM of 132)."""
+    """The fixed rule an unprobed layer runs, recomputed here from its
+    definition: the forward's and wgrad's width 96 output channels where
+    they take no more tiles than 64 do, dgrad's 96 input channels where
+    they pad no more than 64 do; wgrad aimed at three blocks an SM of
+    132."""
     from repro_torch.kernels.lowering_conv import bwd
 
-    def width(c):
+    def fewest(c):
+        return 96 if math.ceil(c / 96) < math.ceil(c / 64) else 64
+
+    def least_pad(c):
         return 96 if math.ceil(c / 96) * 96 <= math.ceil(c / 64) * 64 else 64
-    return bwd.ConvTiles(width(w_shape[3]), width(w_shape[3]), 6 * 132,
-                         width(w_shape[2]))
+    return bwd.ConvTiles(fewest(w_shape[3]), fewest(w_shape[3]), 3 * 132,
+                         least_pad(w_shape[2]))
 
 
 def phase_autotune_check(torch) -> dict:
@@ -2887,7 +2911,7 @@ def phase_autotune_check(torch) -> dict:
         "layers, group batch 64: every one within the plain versions' "
         "limits ok")
     for pass_ in ("fwd", "wgrad", "dgrad"):
-        for bn in lc.DGRAD_BLOCK_N:
+        for bn in lc.BLOCK_N:
             model = lc.smem_bytes(pass_=pass_, block_n=bn)
             built = lc.kernel_smem_bytes(pass_, bn)
             if built != model:

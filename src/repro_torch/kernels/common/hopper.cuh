@@ -1,8 +1,12 @@
 // Hopper building blocks shared by the port's wgmma kernels (the bf16
-// flash forward and the 3xTF32 dgrad): mbarriers, TMA tile loads and the
-// host encoding of their tensor maps, and warpgroup matrix multiplies
-// (wgmma.mma_async) with shared-memory matrix descriptors. Everything here
-// needs sm_90a. The B2, B3 and B6 kernels use ptx.cuh only.
+// flash forward and the 3xTF32 conv forward, wgrad and dgrad): mbarriers,
+// TMA tile loads and the host encoding of their tensor maps, warpgroup
+// matrix multiplies (wgmma.mma_async) with shared-memory matrix
+// descriptors, the prologue that splits a matrix into its TF32 halves,
+// transposed, for a K-major wgmma operand, the in-order sum of a split
+// kernel's partials, and the 3xTF32 ring stage of the three conv kernels'
+// consumers. Everything here needs sm_90a.
+// Only B6 (paged decode) uses ptx.cuh alone.
 //
 // A kernel source includes it as "../../common/hopper.cuh"; the build
 // hashes it into every kernel's library name.
@@ -70,6 +74,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 // elements outside the tensor are filled with zeros.
 // ---------------------------------------------------------------------------
 
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -109,21 +129,98 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 4-D tiled map over a tensor of `dims` (innermost first) with byte
-// strides `strides` of dims 1-3, boxes of `box` elements, the given
+// An R-D tiled map over a tensor of `dims` (innermost first) with byte
+// strides `strides` of dims 1 to R-1, boxes of `box` elements, the given
 // swizzle, zeros outside the tensor. False if the encoding is refused.
-inline bool make_map_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
-                        const uint64_t (&dims)[4], const uint64_t (&strides)[3],
-                        const uint32_t (&box)[4], CUtensorMapSwizzle swizzle) {
+template <int R>
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                     const uint64_t (&dims)[R], const uint64_t (&strides)[R - 1],
+                     const uint32_t (&box)[R], CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
-  const cuuint64_t s[3] = {strides[0], strides[1], strides[2]};
-  const cuuint32_t b[4] = {box[0], box[1], box[2], box[3]};
-  return fn(map, type, 4, const_cast<void*>(base), d, s, b, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+  cuuint64_t d[R], s[R - 1];
+  cuuint32_t b[R], ones[R];
+  for (int i = 0; i < R; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    ones[i] = 1;
+  }
+  for (int i = 0; i < R - 1; ++i) s[i] = strides[i];
+  return fn(map, type, R, const_cast<void*>(base), d, s, b, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ---------------------------------------------------------------------------
+// 3xTF32 operand prologue: src (rows, cols) fp32 -> dst (2, cols, rows4),
+// dst[0] = big = the nearest TF32 (ties away), dst[1] = small = x - big,
+// each transposed so that a row of dst runs along src's rows, rows4 = rows
+// rounded up to 4 (16-byte rows, as TMA reads them) with zeros past rows.
+// A K-major TF32 wgmma operand from a matrix that lies MN-major: W (K, Cout)
+// of the forward, dY (M, Cout) of wgrad. Tiles of 32 x 32 through shared
+// memory, so that reads and writes both run along rows. The prologue and the
+// sum below are templates on a tag of their caller (an incomplete type), so
+// that a profile names each caller's launches apart.
+// ---------------------------------------------------------------------------
+
+template <class Caller>
+__global__ void split_transpose_kernel(const float* __restrict__ src, float* __restrict__ dst,
+                                       int rows, int cols, int rows4) {
+  __shared__ float tile[32][33];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;   // 32 x 8 threads
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    tile[i][tx] = r < rows && c < cols ? src[static_cast<long long>(r) * cols + c] : 0.f;
+  }
+  __syncthreads();
+  const long long plane = static_cast<long long>(cols) * rows4;
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c < cols && r < rows4) {
+      uint32_t big, small;
+      ptx::split_tf32(__float_as_uint(tile[tx][i]), big, small);
+      const long long o = static_cast<long long>(c) * rows4 + r;
+      dst[o] = __uint_as_float(big);
+      dst[plane + o] = __uint_as_float(small);
+    }
+  }
+}
+
+// out[i] = the S partials part[z * n + i] added in slice order z = 0, 1,
+// ...: the last pass of a kernel split over its reduction (the conv
+// forward over K, wgrad over M), with no atomics, so a run gives the same
+// bits as the last one.
+template <class Caller>
+__global__ void slice_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 long long n, int slices) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    float acc = 0.f;
+    for (int z = 0; z < slices; ++z) acc += part[z * n + i];
+    out[i] = acc;
+  }
+}
+
+template <class Caller>
+inline cudaError_t slice_sum(const float* part, float* out, long long n, int slices,
+                             cudaStream_t s) {
+  const long long blocks = (n + 255) / 256;
+  const unsigned grid = static_cast<unsigned>(blocks < 4096 ? blocks : 4096);
+  slice_sum_kernel<Caller><<<grid, 256, 0, s>>>(part, out, n, slices);
+  return cudaGetLastError();
+}
+
+inline int round_up4(int n) { return (n + 3) / 4 * 4; }
+
+template <class Caller>
+inline cudaError_t split_transpose(const float* src, float* dst, int rows, int cols,
+                                   cudaStream_t s) {
+  const int rows4 = round_up4(rows);
+  const dim3 grid((rows4 + 31) / 32, (cols + 31) / 32);
+  split_transpose_kernel<Caller><<<grid, dim3(32, 8), 0, s>>>(src, dst, rows, cols, rows4);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -323,6 +420,63 @@ __device__ __forceinline__ void wgmma_rs_tf32(float (&d)[48], const uint32_t (&a
         "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// ---------------------------------------------------------------------------
+// One ring stage of a 3xTF32 consumer warpgroup (the conv forward, wgrad and
+// dgrad), 32 reduction columns in four 8-column steps. The thread's A
+// fragments (mma.sync's m16n8k8 TF32 A a warp: element e of step ks at the
+// shared-space address a_at(ks, e)) are read from shared memory and split in
+// registers into big = the nearest TF32 and small = x - big; B's halves lie
+// K-major at b_big and b_small, rows of 128 bytes (32 TF32 columns, one
+// 128-byte swizzle row). For each step: big*small + small*big, then
+// big*big. The tensor cores' own fp32 accumulation truncates where IEEE
+// rounds, so the stage sums into a fresh register tile (its first product
+// with scale-d 0) that is added to acc with one IEEE fp32 add per element,
+// after the stage's `empty` barrier has been arrived on (its operands are
+// read by then).
+// ---------------------------------------------------------------------------
+// A 32-bit load at a shared-space address (the stage's A fragments: from a
+// generic pointer the shared stage compiled to more address arithmetic, and
+// the forward and dgrad ran 1-2% slower; PERF.md §6).
+__device__ __forceinline__ uint32_t lds_u32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+template <int N, typename AAt>
+__device__ __forceinline__ void tf32x3_stage(float (&acc)[N], AAt a_at, uint32_t b_big,
+                                             uint32_t b_small, uint32_t empty_bar) {
+  constexpr int KS = 4;
+  uint32_t a_big[KS][4], a_small[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      ptx::split_tf32(lds_u32(a_at(ks, e)), a_big[ks][e], a_small[ks][e]);
+  float stage[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) stage[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const uint64_t d_big = make_desc(b_big + ks * 32, 16, 8 * 128, kSwizzle128);
+    const uint64_t d_small = make_desc(b_small + ks * 32, 16, 8 * 128, kSwizzle128);
+    wgmma_rs_tf32(stage, a_big[ks], d_small, ks > 0);
+    wgmma_rs_tf32(stage, a_small[ks], d_big, 1);
+    wgmma_rs_tf32(stage, a_big[ks], d_big, 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(stage);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {  // the A registers were read until here
+    fence_regs(a_big[ks]);
+    fence_regs(a_small[ks]);
+  }
+  mbar_arrive(empty_bar);   // the stage is free for the producer
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += stage[i];
 }
 
 }  // namespace hopper

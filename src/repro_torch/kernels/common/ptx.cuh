@@ -1,8 +1,7 @@
-// PTX building blocks shared by the port's tensor-core kernels: cp.async
-// copies into shared memory, ldmatrix, mma.sync in bf16, and 3xTF32 on
-// mma.sync m16n8k8 (paged decode, the lowering-conv forward and wgrad); the
-// bf16 packing, the TF32 split and cp.async also feed the wgmma kernels of
-// hopper.cuh (flash attention, dgrad).
+// PTX building blocks shared by the port's kernels: cp.async copies into
+// shared memory, ldmatrix and mma.sync in bf16 (paged decode), the bf16
+// packing and the TF32 split that the wgmma kernels of hopper.cuh use too
+// (flash attention; the 3xTF32 conv forward, wgrad and dgrad).
 //
 // 3xTF32: every fp32 operand x is split as big = the nearest TF32 and
 // small = x - big (split_tf32), and a product accumulates big*small +
@@ -77,26 +76,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ void split_tf32(uint32_t x, uint32_t& big, uint32_t& small) {
   big = (x + 0x1000u) & 0xffffe000u;
   small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
-}
-
-// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-// d = a * b, the same product from a zero accumulator.
-__device__ __forceinline__ void mma_tf32_first(float (&d)[4], const uint32_t (&a)[4],
-                                               const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f),
-        "f"(0.f), "f"(0.f));
 }
 
 }  // namespace ptx

@@ -643,11 +643,11 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   const uint32_t q_box[4] = {T::kCols, 1, wg::kBQ, 1};
   const uint32_t kv_box[4] = {T::kCols, 1, T::kBK, 1};
   CUtensorMap mq, mk, mv;
-  if (!hopper::make_map_4d(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, q_dims, q_strides, q_box,
+  if (!hopper::make_map<4>(&mq, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, q_dims, q_strides, q_box,
                            swz) ||
-      !hopper::make_map_4d(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, kv_dims, kv_strides, kv_box,
+      !hopper::make_map<4>(&mk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, k, kv_dims, kv_strides, kv_box,
                            swz) ||
-      !hopper::make_map_4d(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, kv_dims, kv_strides, kv_box,
+      !hopper::make_map<4>(&mv, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, v, kv_dims, kv_strides, kv_box,
                            swz))
     return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(wg::flash_fwd_bf16_kernel<HD>,

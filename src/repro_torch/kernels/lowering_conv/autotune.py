@@ -28,7 +28,7 @@ import torch
 from repro_torch.engine import timing
 from repro_torch.kernels.lowering_conv import bwd
 from repro_torch.kernels.lowering_conv.lowering_conv import (
-    DGRAD_BLOCK_N, lowering_conv_cuda, out_hw, smem_bytes)
+    BLOCK_N, lowering_conv_cuda, out_hw, smem_bytes)
 from repro_torch.kernels.lowering_conv.ref import lower
 
 #: a layer never probed runs the fixed rule, a function of its kernel shape
@@ -40,9 +40,10 @@ DEFAULT_BUDGET_BYTES = None
 #: the sm_90 opt-in maximum (227 KiB), the budget off the card, where the
 #: plain versions run and no tile is launched
 SM90_SMEM_OPTIN_BYTES = 227 * 1024
-#: wgrad's block targets probed: 2-12 blocks an SM of the H100's 132,
-#: around ``bwd.WGRAD_TARGET_BLOCKS`` (6)
-WGRAD_BLOCKS = tuple(n * 132 for n in (2, 4, 6, 8, 12))
+#: wgrad's block targets probed: 1-6 blocks an SM of the H100's 132,
+#: around ``bwd.WGRAD_TARGET_BLOCKS`` (3); one wgmma block is resident on
+#: an SM at a time, so these are waves
+WGRAD_BLOCKS = tuple(n * 132 for n in (1, 2, 3, 4, 6))
 PASSES = ("fwd", "wgrad", "dgrad")
 
 # geometry key -> (tiles, budget_bytes the probe ran under)
@@ -115,7 +116,7 @@ def tile_candidates(x_shape, w_shape, stride: int, *,
     dflt = DEFAULT_TILES(w_shape)
 
     def widths(pass_, first):
-        order = (first, *(bn for bn in DGRAD_BLOCK_N if bn != first))
+        order = (first, *(bn for bn in BLOCK_N if bn != first))
         return [bn for bn in order
                 if smem_bytes(pass_=pass_, block_n=bn) <= budget_bytes]
 

@@ -11,11 +11,12 @@ forward already built:
 
 Plain versions (``wgrad_ref``, ``col2im_ref``, ``dgrad_ref``: the JAX
 ``*_xla`` forms) and the wrappers of the two kernels, both 3xTF32 on
-tensor cores: ``wgrad_cuda`` (``csrc/wgrad.cu``: partial products over
-slices of the M rows, then a sum in slice order) and ``dgrad_cuda``
-(``csrc/dgrad.cu``: dX as one implicit GEMM over the taps on wgmma, W
-split into TF32 big and small halves by a prologue and brought by TMA, dY
-gathered on the fly; no dCols, no col2im pass).
+Hopper's wgmma: ``wgrad_cuda`` (``csrc/wgrad.cu``: dY split into TF32 big
+and small halves and transposed by a prologue, then partial products over
+slices of the M rows with both tiles brought by TMA, then a sum in slice
+order) and ``dgrad_cuda`` (``csrc/dgrad.cu``: dX as one implicit GEMM over
+the taps, W split into TF32 big and small halves by a prologue and brought
+by TMA, dY gathered on the fly; no dCols, no col2im pass).
 A CUDA tensor launches the kernel (or raises); a CPU tensor takes the plain
 version. Each wrapper call adds one to its ``launches``.
 
@@ -34,18 +35,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.lowering_conv.lowering_conv import (
-    DGRAD_BLOCK_N, check_operands, dgrad_block_n, out_hw)
+    BLOCK_N, check_operands, dgrad_block_n, out_block_n, out_hw,
+    split_stages)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``wgrad_launch``'s C signature, in order
-WGRAD_ARGTYPES = [_P] * 4 + [_I] * 7 + [_P]
+WGRAD_ARGTYPES = [_P] * 5 + [_I] * 7 + [_P]
 #: ``dgrad_launch``'s C signature, in order
 DGRAD_ARGTYPES = [_P] * 4 + [_I] * 10 + [_P]
 
-WGRAD_TILE_K = 64              # rows of dW (K) per wgrad block
+WGRAD_TILE_K = 128             # rows of dW (K) per wgrad block
 WGRAD_STAGE_ROWS = 32          # reduction rows of one wgrad stage
 WGRAD_MAX_SLICE_ROWS = 2048    # rows one block sums in order (fp32 error)
-WGRAD_TARGET_BLOCKS = 6 * 132  # six blocks per SM of an H100
+WGRAD_TARGET_BLOCKS = 3 * 132  # three waves of one block an SM of an H100
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,18 +63,19 @@ class ConvTiles:
 
     def __post_init__(self):
         for name in ("fwd_bn", "wgrad_bn", "dgrad_bn"):
-            if getattr(self, name) not in DGRAD_BLOCK_N:
+            if getattr(self, name) not in BLOCK_N:
                 raise ValueError(f"{name}={getattr(self, name)}: the kernels "
-                                 f"are built for widths {DGRAD_BLOCK_N}")
+                                 f"are built for widths {BLOCK_N}")
         if self.wgrad_blocks < 1:
             raise ValueError(f"wgrad_blocks={self.wgrad_blocks} < 1")
 
 
 def default_tiles(w_shape) -> ConvTiles:
-    """The fixed rule for kernel shape (kh, kw, Cin, Cout): each width the
-    one that pads its channels least (``dgrad_block_n``), wgrad aiming at
-    ``WGRAD_TARGET_BLOCKS``."""
-    bn_out = dgrad_block_n(w_shape[3])
+    """The fixed rule for kernel shape (kh, kw, Cin, Cout): the forward's
+    and wgrad's width the one that takes the fewest tiles of Cout
+    (``out_block_n``), dgrad's the one that pads Cin least
+    (``dgrad_block_n``), wgrad aiming at ``WGRAD_TARGET_BLOCKS``."""
+    bn_out = out_block_n(w_shape[3])
     return ConvTiles(fwd_bn=bn_out, wgrad_bn=bn_out,
                      wgrad_blocks=WGRAD_TARGET_BLOCKS,
                      dgrad_bn=dgrad_block_n(w_shape[2]))
@@ -132,18 +135,24 @@ def dgrad_ref(dy: torch.Tensor, w: torch.Tensor, x_shape,
 def wgrad_slices(m: int, k: int, cout: int, block_n: int = None,
                  target_blocks: int = WGRAD_TARGET_BLOCKS):
     """(slice_rows, slices) of the split over the M rows: about
-    ``target_blocks`` blocks over the dW tiles (64 x ``block_n``, default
-    ``dgrad_block_n(cout)``), at most ``WGRAD_MAX_SLICE_ROWS`` rows summed
+    ``target_blocks`` blocks over the dW tiles (128 x ``block_n``, default
+    ``out_block_n(cout)``), at most ``WGRAD_MAX_SLICE_ROWS`` rows summed
     in order by any one block (an fp32 accuracy bound, whatever the tiles),
     slices a whole number of 32-row stages. Depends on the shapes and tiles
     only, so a run gives the same bits as the last one."""
-    block_n = dgrad_block_n(cout) if block_n is None else block_n
+    block_n = out_block_n(cout) if block_n is None else block_n
     tiles = math.ceil(k / WGRAD_TILE_K) * math.ceil(cout / block_n)
-    s = max(math.ceil(m / WGRAD_MAX_SLICE_ROWS),
-            math.ceil(target_blocks / tiles))
-    s = min(s, math.ceil(m / WGRAD_STAGE_ROWS))
-    rows = math.ceil(math.ceil(m / s) / WGRAD_STAGE_ROWS) * WGRAD_STAGE_ROWS
-    return rows, math.ceil(m / rows)
+    per, slices = split_stages(
+        math.ceil(m / WGRAD_STAGE_ROWS), tiles, target_blocks,
+        least=math.ceil(m / WGRAD_MAX_SLICE_ROWS))
+    return per * WGRAD_STAGE_ROWS, slices
+
+
+def wgrad_split_floats(m: int, cout: int) -> int:
+    """Floats of wgrad's dY scratch: big and small halves of dY
+    transposed, (Cout, M4) each, M4 = M rounded up to 4 (16-byte rows, as
+    TMA reads them)."""
+    return 2 * cout * (-(-m // 4) * 4)
 
 
 def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape, *,
@@ -151,7 +160,9 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape, *,
     """lowered: (B, Ho, Wo, kh*kw*Cin) forward residual (or (M, K));
     dy: (B, Ho, Wo, Cout). Returns dW (kh, kw, Cin, Cout) in fp32, split
     over M by ``tiles`` (``wgrad_bn``, ``wgrad_blocks``; default
-    ``default_tiles(kshape)``)."""
+    ``default_tiles(kshape)``). The kernel's prologue writes dY's TF32 big
+    and small halves, transposed, to a scratch of
+    ``wgrad_split_floats(M, Cout)`` floats."""
     kh, kw, cin, cout = kshape
     K = kh * kw * cin
     if lowered.shape[-1] != K or dy.shape[-1] != cout:
@@ -165,12 +176,15 @@ def wgrad_cuda(lowered: torch.Tensor, dy: torch.Tensor, kshape, *,
     check_operands(lowered=lowered, dy=dy)
     t = default_tiles(kshape) if tiles is None else tiles
     rows, slices = wgrad_slices(m, K, cout, t.wgrad_bn, t.wgrad_blocks)
+    dysplit = torch.empty(wgrad_split_floats(m, cout), dtype=torch.float32,
+                          device=lowered.device)
     part = torch.empty((slices, K, cout), dtype=torch.float32,
                        device=lowered.device)
     dw = torch.empty((kh, kw, cin, cout), dtype=torch.float32,
                      device=lowered.device)
     err = _build.launcher("wgrad", WGRAD_ARGTYPES)(
-        lowered.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), m,
+        lowered.data_ptr(), dy.data_ptr(), dysplit.data_ptr(),
+        part.data_ptr(), dw.data_ptr(), m,
         K, cout, rows, slices, t.wgrad_bn,
         lowered.device.index or 0,
         torch.cuda.current_stream(lowered.device).cuda_stream)

@@ -55,7 +55,8 @@
 // all of K' (6400 products at conv2) it drifted to 4e-5 relative RMS on an
 // H100, so each stage sums into a fresh register tile (its first product
 // with scale-d 0) that is added to the running sum with one IEEE fp32 add
-// per output element and stage. Stride > 1 takes the same path, paying
+// per output element and stage (hopper::tf32x3_stage, shared with the
+// forward and wgrad). Stride > 1 takes the same path, paying
 // for the taps that miss the lattice. The block has 12 warps, so ptxas
 // compiles it under 168 registers a thread, which the consumers' 48 + 48
 // accumulators and 32 split A registers fit; at CaffeNet's shapes the
@@ -110,7 +111,6 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw, const float* __restrict__ 
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* gbase = smem_raw + (base - raw);   // the same bytes, generic address
   const uint32_t bar = base + kStages * kStageBytes;
   auto full = [&](int s) { return bar + 8 * s; };
   auto empty = [&](int s) { return bar + 8 * (kStages + s); };
@@ -218,49 +218,16 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw, const float* __restrict__ 
     for (int kt = 0; kt < n_k; ++kt) {
       const int st = kt % kStages;
       const uint32_t sa = base + st * kStageBytes;
-      const unsigned char* ga = gbase + st * kStageBytes;
       mbar_wait(full(st), (kt / kStages) & 1);
 
       // A fragments (mma.sync's m16n8k8 TF32 A a warp: (g, t), (g+8, t),
-      // (g, t+4), (g+8, t+4) of each 8-channel step), split in registers
-      uint32_t a_big[kBK / 8][4], a_small[kBK / 8][4];
-#pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = r0 + (e & 1) * 8;
-          const int chunk = 2 * ks + (e >> 1);   // r % 8 == g
-          const uint32_t x = *reinterpret_cast<const uint32_t*>(
-              ga + r * kRow + ((chunk ^ g) << 4) + tig * 4);
-          ptx::split_tf32(x, a_big[ks][e], a_small[ks][e]);
-        }
-      }
-
-      // this stage's sums: fresh, then added to acc with IEEE fp32 adds
-      float part[BN / 2];
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) part[i] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {
-        const uint64_t d_big = make_desc(sa + kABytes + ks * 32, 16, 8 * kRow, kSwizzle128);
-        const uint64_t d_small =
-            make_desc(sa + kABytes + kBBytes + ks * 32, 16, 8 * kRow, kSwizzle128);
-        wgmma_rs_tf32(part, a_big[ks], d_small, ks > 0);
-        wgmma_rs_tf32(part, a_small[ks], d_big, 1);
-        wgmma_rs_tf32(part, a_big[ks], d_big, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(part);
-#pragma unroll
-      for (int ks = 0; ks < kBK / 8; ++ks) {  // the A registers were read until here
-        fence_regs(a_big[ks]);
-        fence_regs(a_small[ks]);
-      }
-      mbar_arrive(empty(st));   // the stage is free for the producer
-#pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+      // (g, t+4), (g+8, t+4) of each 8-channel step; r % 8 == g)
+      auto a_at = [&](int ks, int e) {
+        const int r = r0 + (e & 1) * 8;
+        const int chunk = 2 * ks + (e >> 1);
+        return sa + r * kRow + ((chunk ^ g) << 4) + tig * 4;
+      };
+      tf32x3_stage(acc, a_at, sa + kABytes, sa + kABytes + kBBytes, empty(st));
     }
 
 #pragma unroll
@@ -293,7 +260,7 @@ cudaError_t launch(const float* dy, const float* w, float* wsplit, float* dx, in
   const uint64_t row = static_cast<uint64_t>(cout4) * 4;
   const uint64_t strides[3] = {row, row * Cin, row * rows};
   const uint32_t box[4] = {kBK, BN, 1, 1};
-  if (!make_map_4d(&tmw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wsplit, dims, strides, box,
+  if (!make_map<4>(&tmw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, wsplit, dims, strides, box,
                    CU_TENSOR_MAP_SWIZZLE_128B))
     return cudaErrorInvalidValue;
 

@@ -1,6 +1,6 @@
 // Weight gradient of the lowering conv for Hopper (sm_90a): dW = lowered^T @ dY
-// from the forward's lowered residual, on tensor cores in 3xTF32, split over
-// the M = B*Ho*Wo rows.
+// from the forward's lowered residual, in 3xTF32 on wgmma with tiles brought
+// by TMA, split over the M = B*Ho*Wo rows.
 //
 // Replaces the TPU kernel src/repro/kernels/lowering_conv/bwd.py ::
 // wgrad_pallas (_wgrad_kernel).
@@ -13,218 +13,250 @@
 // products on each of the 2*M*K*Cout necessary flops, so the least time is
 // 3 * flops / 495 TFLOP/s: 0.4571 ms over CaffeNet's conv1-5 at group batch
 // 64 (75.4 GFLOP), against 1.1257 ms at the 67 TFLOP/s fp32 CUDA-core rate
-// and about 0.25 ms for the bytes, 4*(M*K + M*Cout + K*Cout).
+// and about 0.25 ms for the bytes, 4*(M*K + M*Cout + K*Cout); conv1 alone
+// (K = 363) is bound by its bytes.
 //
-// What held the first design back: 64 x 64 tiles of fp32 CUDA-core FMAs
-// (21-32 TFLOP/s of 67), stages of 16 rows loaded synchronously with a
-// barrier on each side and no copy in flight during the product.
+// What held the design before this one back: mma.sync (Ampere's products),
+// both operands read transposed by scalar shared-memory reads and split in
+// registers by every warp at every stage, 4-warp blocks.
 //
-// Design (the machinery of lowering_conv.cu and dgrad.cu, common/ptx.cuh).
-// The TPU kernel sums every grid step into one output block that stays in
-// VMEM, which needs the grid to run in order. Blocks run in parallel here,
-// and the output has few tiles (6 at conv1), so the M rows are split into S
-// slices of `slice_rows` (a multiple of 32) that the wrapper picks from the
-// shapes alone. Block (tile, slice) owns a 64 (K) x BN (Cout) tile of dW
-// over its slice: 4 warps, 2 x 2, each a 32 x BN/2 tile of mma.sync
-// m16n8k8 TF32 products; BN (64 or 96) pads Cout least (conv1's 96 fill one
-// tile, 256 take 4 x 64, 384 take 4 x 96). The block walks its rows in
-// stages of 32 through a 3-stage cp.async ring: the A stage is 32 rows x 64
-// columns of `lowered`, the B stage 32 rows x BN columns of dY, both copied
-// as they lie, 16 bytes a copy where K (A) or Cout (B) is a multiple of 4
-// and 4 bytes otherwise (conv1's residual rows are 363 floats, not 16-byte
-// aligned), zero past M, K and Cout. Both operands lie reduction-major, so
-// the A fragments (dW row k x reduction row m) are read transposed, by
-// scalar 32-bit shared-memory reads (ldmatrix's .trans moves b16 only);
-// rows of 64 + 8 and BN + 8 floats (8 mod 32) put the 4 reduction rows x 8
-// columns of a fragment read in 32 distinct banks, for A and B alike.
-// Every fragment is split as big = the nearest TF32 and small = x - big, and
-// each product accumulates big*small + small*big, then big*big, in fp32;
-// each stage sums into a fresh register tile (its first product from a
-// zero accumulator) that is added to the running sum with IEEE fp32 adds,
-// since the tensor cores' own accumulation truncates (chained over all of
-// K it drifted to 4e-5 relative RMS in dgrad). The block writes its fp32
-// partial to an (S, K, Cout) scratch, and a second kernel sums the S
-// partials of each element in slice order. No atomics: a run gives the
-// same bits as the last one.
+// Design (dgrad.cu's machinery, common/hopper.cuh). The TPU kernel sums
+// every grid step into one output block that stays in VMEM, which needs the
+// grid to run in order. Blocks run in parallel here, and the output has few
+// tiles (3 at conv1), so the M rows are split into S slices of `slice_rows`
+// (a multiple of 32) that the wrapper picks from the shapes alone; block
+// (tile, slice) owns a 128 (K) x BN (Cout) tile of dW over its slice (BN =
+// 64 or 96, an argument). Neither operand lies along the reduction (M):
+// `lowered` is K-contiguous and dY Cout-contiguous, while TF32 wgmma takes
+// its shared-memory operand (B) K-major only and only A from registers. So
+// A = lowered^T comes from registers, read transposed from shared memory and
+// split there, and B = dY is transposed to M-contiguous rows once, by a
+// prologue (hopper::split_transpose) that splits it into big = the nearest
+// TF32 (ties away) and small = x - big as a (2, Cout, M4) scratch (M4 = M
+// rounded up to 4, zero-padded: 16-byte rows for TMA). Of the two ways to
+// a K-major B, both were built and timed (PERF.md §6): a split and
+// transpose of each stage's dY tile in shared memory by the producer gave
+// the same bits and the same time at conv1, but was slower at conv2-5,
+// where it redoes the split for every K tile of dW (19 at conv2) in the
+// producer's 128 threads between two barriers a stage. The prologue moves
+// 3x dY's bytes once (dY is K/Cout times smaller than the residual: 34.7 MB
+// against 325 MB at conv2) and leaves the producer to issuing copies.
+// One launch runs three kernels: the prologue, the partial products, and a
+// sum of the partials. The partial kernel's block has three warpgroups and
+// walks its slice in stages of 32 rows through a 4-stage ring, each stage
+// with a "full" and an "empty" mbarrier. Warpgroup 0 is the producer: one
+// thread brings the stage's big and small dY tiles (BN x 32, 128-byte
+// swizzled rows) by TMA from a 3-D map over (M4, Cout, 2), and, where K is a
+// multiple of 4 (rows of `lowered` 16-byte aligned: conv2-5), the A tile
+// (32 rows x 128 columns of `lowered`) as 4 boxes of 32 columns x 32 rows,
+// 128-byte swizzled, from a 2-D map over (K, M). TMA refuses conv1's
+// 1452-byte rows (K = 363), so there all 128 producer threads copy the A
+// tile with 4-byte cp.async, 4 rows x 8 columns a warp instruction, laid
+// out [k / 8][m][k % 8], the copies' completion arriving on the full
+// barrier. The transposed fragment reads (4 reduction rows x 8 columns a
+// warp) fall in 32 distinct banks in that layout and meet 2-way conflicts
+// in the swizzled boxes; but TMA boxes of 8 columns (32-byte rows) were
+// slower at conv2-5, and copies into the swizzled layout slower at conv1,
+// so each path keeps its own layout. Rows past
+// M, columns past K and channels past Cout are zeros (TMA's fill, the
+// scratch's padding, cp.async's zero fill). Warpgroups 1 and 2 consume 64
+// rows of dW each: per 8-row step they read their A fragments, split them,
+// and issue wgmma m64nBNk8 TF32, big*small + small*big, then big*big. The
+// tensor cores' own fp32 accumulation truncates where IEEE rounds, so each
+// stage sums into a fresh register tile (its first product with scale-d 0)
+// that is added to the running sum with IEEE fp32 adds
+// (hopper::tf32x3_stage, as in the forward and dgrad). The block writes
+// its fp32 partial to an (S, K, Cout) scratch, and a last kernel
+// (hopper::slice_sum) adds the S partials of each element in slice order.
+// No atomics: a run gives the same bits as the last one. The default
+// width is the one that takes the fewest tiles of Cout (each tile reads
+// the residual again), and the split aims at three blocks an SM: one
+// block of this size is resident at a time. Its time per layer beside its
+// bound: PERF.md §6.
+#include "../../common/hopper.cuh"
 #include "../../common/ptx.cuh"
+
+struct conv_wgrad;  // names this kernel's dY prologue and slice sum in a profile
 
 namespace {
 
-constexpr int kBM = 64;        // rows of dW (K) per block
-constexpr int kBQ = 32;        // reduction rows (M) per stage
-constexpr int kStages = 3;
-constexpr int kThreads = 128;  // 4 warps, 2 x 2, each a 32 x BN/2 tile
-constexpr int kRSA = kBM + 8;  // A row stride in floats (8 mod 32)
+using namespace hopper;
 
-template <int BN>
-constexpr int smem_bytes() {
-  return kStages * kBQ * (kRSA + BN + 8) * static_cast<int>(sizeof(float));
+constexpr int kBK = 128;          // rows of dW (K) per block, 64 a consumer warpgroup
+constexpr int kBQ = 32;           // reduction rows (M) per stage
+constexpr int kRow = kBQ * 4;     // bytes of a dY stage row: one 128-byte swizzle row
+constexpr int kConsumers = 2;
+constexpr int kThreads = 128 * (1 + kConsumers);
+constexpr int kProducers = 128;   // threads of the producer warpgroup
+constexpr int kStages = 4;
+constexpr int kABoxes = kBK / 32; // TMA boxes of 32 columns x 32 rows in an A stage
+constexpr int kABox = kBQ * 128;  // bytes of one: 32 rows of 128 swizzled bytes
+
+// Byte offset of lowered[q0 + m][k0 + k] in an A stage. Brought by TMA:
+// box k / 32, row m, 16-byte chunk (k % 32) / 4 at chunk ^ (m % 8) (the
+// 128-byte swizzle). Copied by cp.async: [k / 8][m][k % 8].
+template <bool ATMA>
+__device__ __forceinline__ int a_offset(int m, int k) {
+  if (ATMA) return (k >> 5) * kABox + m * 128 + ((((k & 31) >> 2) ^ (m & 7)) << 4) + (k & 3) * 4;
+  return ((k >> 3) * kBQ + m) * 32 + (k & 7) * 4;
 }
 
-using namespace ptx;
+// 1024 bytes of alignment slack, the ring (A, big dY, small dY a stage),
+// the full and empty mbarriers.
+template <int BN>
+constexpr int smem_bytes() {
+  return 1024 + kStages * (kBK * kBQ * 4 + 2 * BN * kRow) + 8 * 2 * kStages;
+}
 
-// AVEC / BVEC: floats per copy of the A stage (4 where K % 4 == 0) and of
-// the B stage (4 where Cout % 4 == 0).
-template <int BN, int AVEC, int BVEC>
-__global__ void __launch_bounds__(kThreads)
-wgrad_partial_kernel(const float* __restrict__ low, const float* __restrict__ dy,
-                     float* __restrict__ part, int M, int K, int Cout, int slice_rows) {
-  constexpr int RSB = BN + 8;              // B row stride in floats (8 mod 32)
-  constexpr int WN = BN / 2;               // columns of a warp's tile
-  constexpr int NB = WN / 8;               // 8-column mma blocks per warp
-  constexpr int ACPR = kBM / AVEC;         // A copies per stage row
-  constexpr int PA = kBQ * ACPR / kThreads;
-  constexpr int BCPR = BN / BVEC;          // B copies per stage row
-  constexpr int PB = kBQ * BCPR / kThreads;
-  static_assert((kBQ * ACPR) % kThreads == 0 && (kBQ * BCPR) % kThreads == 0, "tile shape");
-  extern __shared__ __align__(16) float smem[];
-  float* As = smem;                        // kStages x kBQ x kRSA: lowered rows
-  float* Bs = smem + kStages * kBQ * kRSA; // kStages x kBQ x RSB: dY rows
+// ATMA: the A tile by TMA (K % 4 == 0 and `low` 16-byte aligned), else by
+// 4-byte cp.async.
+template <int BN, bool ATMA>
+__global__ void __launch_bounds__(kThreads, 1)
+wgrad_partial_kernel(const __grid_constant__ CUtensorMap tma, const __grid_constant__ CUtensorMap tmb,
+                     const float* __restrict__ low, float* __restrict__ part, int M, int K,
+                     int Cout, int slice_rows) {
+  constexpr int kABytes = kBK * kBQ * 4;
+  constexpr int kBBytes = BN * kRow;         // one of big / small
+  constexpr int kStageBytes = kABytes + 2 * kBBytes;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t bar = base + kStages * kStageBytes;
+  auto full = [&](int s) { return bar + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 * (kStages + s); };
+  // stage s: A (a_offset) at s * kStageBytes, then big dY, then small dY
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int g = lane >> 2, tig = lane & 3;
   const int n0 = blockIdx.x * BN;
-  const int k0 = blockIdx.y * kBM;
+  const int k0 = blockIdx.y * kBK;
   const int q_begin = blockIdx.z * slice_rows;
   const int q_end = min(M, q_begin + slice_rows);
   const int n_k = (q_end - q_begin + kBQ - 1) / kBQ;
 
-  auto load = [&](int kt, int st) {
-    const int q0 = q_begin + kt * kBQ;
-    float* as = As + st * kBQ * kRSA;
-    float* bs = Bs + st * kBQ * RSB;
-#pragma unroll
-    for (int p = 0; p < PA; ++p) {
-      const int c = tid + p * kThreads;
-      const int r = c / ACPR;
-      const int col = (c - r * ACPR) * AVEC;
-      const bool ok = q0 + r < q_end && k0 + col < K;
-      cp_async<AVEC>(smem_u32(as + r * kRSA + col),
-                     ok ? low + static_cast<long long>(q0 + r) * K + k0 + col : low, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), ATMA ? 1 : kProducers + 1);   // the TMA bytes (+ each copier)
+      mbar_init(empty(s), 128 * kConsumers);
     }
-#pragma unroll
-    for (int p = 0; p < PB; ++p) {
-      const int c = tid + p * kThreads;
-      const int r = c / BCPR;
-      const int col = (c - r * BCPR) * BVEC;
-      const bool ok = q0 + r < q_end && n0 + col < Cout;
-      cp_async<BVEC>(smem_u32(bs + r * RSB + col),
-                     ok ? dy + static_cast<long long>(q0 + r) * Cout + n0 + col : dy, ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < n_k) load(s, s);
-    cp_async_commit();
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  float acc[2][NB][4];
+  // the warpgroup's index through a shuffle, so the compiler sees the role
+  // branch below as warp-uniform
+  const int wgi = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wgi == 0) {
+    // ----- producer: dY tiles by TMA, the A tile by TMA or cp.async -----
+    const int tid = threadIdx.x;
+    if (tid == 0) {
+      tma_prefetch(&tmb);
+      if (ATMA) tma_prefetch(&tma);
+    }
+    // cp.async: a warp copies 4 rows x 8 columns an instruction, lane
+    // (ki, mr) = (lane % 8, lane / 8); warp w takes the 8-column groups'
+    // 4-row groups w, w + 4, ...
+    const int lane = tid & 31, warp = tid >> 5;
+    const int ki = lane & 7, mr = lane >> 3;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int st = kt % kStages;
+      if (kt >= kStages) mbar_wait(empty(st), ((kt / kStages) - 1) & 1);
+      const uint32_t sa = base + st * kStageBytes;
+      const int q0 = q_begin + kt * kBQ;
+      if (tid == 0) {
+        mbar_arrive_expect_tx(full(st), (ATMA ? kABytes : 0) + 2 * kBBytes);
+        tma_load_3d(sa + kABytes, &tmb, full(st), q0, n0, 0);
+        tma_load_3d(sa + kABytes + kBBytes, &tmb, full(st), q0, n0, 1);
+        if (ATMA) {
 #pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
-
-  for (int kt = 0; kt < n_k; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt has landed; every warp is done with stage kt - 1
-    const int nxt = kt + kStages - 1;
-    if (nxt < n_k) load(nxt, nxt % kStages);
-    cp_async_commit();
-
-    const uint32_t* asu = reinterpret_cast<const uint32_t*>(As + (kt % kStages) * kBQ * kRSA);
-    const uint32_t* bsu = reinterpret_cast<const uint32_t*>(Bs + (kt % kStages) * kBQ * RSB);
-    float stage[2][NB][4];  // this stage's sums, added to acc with IEEE fp32 adds
-#pragma unroll
-    for (int ks = 0; ks < kBQ / 8; ++ks) {
-      // a[e] = A[row][q] with A = lowered^T: row g (+8 for e odd) of the
-      // 16-row block, reduction row tig (+4 for e >= 2), read transposed
-      uint32_t a_big[2][4], a_small[2][4];
-#pragma unroll
-      for (int mb = 0; mb < 2; ++mb) {
-        const uint32_t* lo = asu + (ks * 8 + tig) * kRSA + wm * 32 + mb * 16 + g;
-        const uint32_t* hi = lo + 4 * kRSA;
-        split_tf32(lo[0], a_big[mb][0], a_small[mb][0]);
-        split_tf32(lo[8], a_big[mb][1], a_small[mb][1]);
-        split_tf32(hi[0], a_big[mb][2], a_small[mb][2]);
-        split_tf32(hi[8], a_big[mb][3], a_small[mb][3]);
-      }
-      uint32_t b_big[NB][2], b_small[NB][2];
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        const int n = wn * WN + nb * 8 + g;
-        split_tf32(bsu[(ks * 8 + tig) * RSB + n], b_big[nb][0], b_small[nb][0]);
-        split_tf32(bsu[(ks * 8 + tig + 4) * RSB + n], b_big[nb][1], b_small[nb][1]);
-      }
-#pragma unroll
-      for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          if (ks == 0)
-            mma_tf32_first(stage[mb][nb], a_big[mb], b_small[nb]);
-          else
-            mma_tf32(stage[mb][nb], a_big[mb], b_small[nb]);
-          mma_tf32(stage[mb][nb], a_small[mb], b_big[nb]);
-          mma_tf32(stage[mb][nb], a_big[mb], b_big[nb]);
+          for (int b = 0; b < kABoxes; ++b)
+            tma_load_2d(sa + b * kABox, &tma, full(st), k0 + 32 * b, q0);
         }
+      }
+      if (!ATMA) {
+#pragma unroll 8
+        for (int p = 0; p < kBK * kBQ / 8 / 4 / 4; ++p) {   // 32 row groups a warp
+          const int idx = warp + 4 * p;                 // (8-column group, 4-row group)
+          const int kk = (idx >> 3) * 8 + ki;           // column in the stage
+          const int mq = ((idx & 7) << 2) + mr;         // row in the stage
+          const int k = k0 + kk;
+          const int q = q0 + mq;
+          const bool ok = k < K && q < q_end;
+          ptx::cp_async<1>(sa + a_offset<false>(mq, kk),
+                           ok ? low + static_cast<long long>(q) * K + k : low, ok);
+        }
+        mbar_arrive_cp_async(full(st));
+      }
     }
+  } else {
+    // ----- consumers: 64 rows of dW a warpgroup -----
+    const int cw = wgi - 1;
+    const int t = threadIdx.x - 128 * wgi;
+    const int warp = t >> 5, lane = t & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const int r0 = 64 * cw + 16 * warp + g;   // this thread's rows of dW: r0, r0 + 8
+    float acc[BN / 2];
 #pragma unroll
-    for (int a = 0; a < 2; ++a)
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[a][b][e] += stage[a][b][e];
-  }
-  cp_async_wait<0>();
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-  float* out = part + static_cast<long long>(blockIdx.z) * K * Cout;
+    for (int kt = 0; kt < n_k; ++kt) {
+      const int st = kt % kStages;
+      const uint32_t sa = base + st * kStageBytes;
+      mbar_wait(full(st), (kt / kStages) & 1);
+
+      // A = lowered^T, fragments of mma.sync's m16n8k8 TF32 A a warp:
+      // a[e] = A[row g (+8 for e odd)][reduction row tig (+4 for e >= 2)],
+      // read transposed from the stage
+      auto a_at = [&](int ks, int e) {
+        return sa + a_offset<ATMA>(8 * ks + tig + (e >> 1) * 4, r0 + (e & 1) * 8);
+      };
+      tf32x3_stage(acc, a_at, sa + kABytes, sa + kABytes + kBBytes, empty(st));
+    }
+
+    // element 4j + e: row r0 + 8 (e / 2), column 8j + 2 tig + (e % 2)
+    float* out = part + static_cast<long long>(blockIdx.z) * K * Cout;
 #pragma unroll
-  for (int mb = 0; mb < 2; ++mb)
-#pragma unroll
-    for (int nb = 0; nb < NB; ++nb)
+    for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = k0 + wm * 32 + mb * 16 + g + (e >> 1) * 8;
-        const int c = n0 + wn * WN + nb * 8 + 2 * tig + (e & 1);
-        if (r < K && c < Cout) out[static_cast<long long>(r) * Cout + c] = acc[mb][nb][e];
+        const int r = k0 + r0 + 8 * (e >> 1);
+        const int c = n0 + 8 * j + 2 * tig + (e & 1);
+        if (r < K && c < Cout) out[static_cast<long long>(r) * Cout + c] = acc[4 * j + e];
       }
-}
-
-__global__ void wgrad_reduce_kernel(const float* __restrict__ part, float* __restrict__ dw,
-                                    long long kn, int slices) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < kn;
-       i += stride) {
-    float acc = 0.f;
-    for (int z = 0; z < slices; ++z) acc += part[z * kn + i];
-    dw[i] = acc;
   }
 }
 
-template <int BN, int AVEC, int BVEC>
-cudaError_t launch(const float* low, const float* dy, float* part, int M, int K, int Cout,
-                   int slice_rows, int slices, cudaStream_t s) {
+template <int BN, bool ATMA>
+cudaError_t launch(const float* low, const float* dy, float* dysplit, float* part, int M, int K,
+                   int Cout, int slice_rows, int slices, cudaStream_t s) {
+  cudaError_t err = split_transpose<conv_wgrad>(dy, dysplit, M, Cout, s);
+  if (err != cudaSuccess) return err;
+  const int m4 = round_up4(M);
+  CUtensorMap tma{}, tmb;
+  {
+    const uint64_t dims[3] = {static_cast<uint64_t>(m4), static_cast<uint64_t>(Cout), 2};
+    const uint64_t row = static_cast<uint64_t>(m4) * 4;
+    const uint64_t strides[2] = {row, row * Cout};
+    const uint32_t box[3] = {kBQ, BN, 1};
+    if (!make_map<3>(&tmb, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, dysplit, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  }
+  if (ATMA) {
+    const uint64_t dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+    const uint64_t strides[1] = {static_cast<uint64_t>(K) * 4};
+    const uint32_t box[2] = {32, kBQ};
+    if (!make_map<2>(&tma, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, low, dims, strides, box,
+                     CU_TENSOR_MAP_SWIZZLE_128B))
+      return cudaErrorInvalidValue;
+  }
   constexpr int smem = smem_bytes<BN>();
   // Set on every launch: the attribute is per device, and the call is cheap.
-  cudaError_t err = cudaFuncSetAttribute(wgrad_partial_kernel<BN, AVEC, BVEC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  err = cudaFuncSetAttribute(wgrad_partial_kernel<BN, ATMA>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Cout + BN - 1) / BN, (K + kBM - 1) / kBM, slices);
-  wgrad_partial_kernel<BN, AVEC, BVEC><<<grid, kThreads, smem, s>>>(low, dy, part, M, K, Cout,
-                                                                    slice_rows);
+  const dim3 grid((Cout + BN - 1) / BN, (K + kBK - 1) / kBK, slices);
+  wgrad_partial_kernel<BN, ATMA><<<grid, kThreads, smem, s>>>(tma, tmb, low, part, M, K, Cout,
+                                                              slice_rows);
   return cudaGetLastError();
-}
-
-template <int BN>
-cudaError_t dispatch_vec(bool avec, bool bvec, const float* low, const float* dy, float* part,
-                         int M, int K, int Cout, int slice_rows, int slices, cudaStream_t s) {
-  if (avec)
-    return bvec ? launch<BN, 4, 4>(low, dy, part, M, K, Cout, slice_rows, slices, s)
-                : launch<BN, 4, 1>(low, dy, part, M, K, Cout, slice_rows, slices, s);
-  return bvec ? launch<BN, 1, 4>(low, dy, part, M, K, Cout, slice_rows, slices, s)
-              : launch<BN, 1, 1>(low, dy, part, M, K, Cout, slice_rows, slices, s);
 }
 
 }  // namespace
@@ -236,37 +268,39 @@ extern "C" int wgrad_smem_bytes(int block_n) {
   return block_n == 96 ? smem_bytes<96>() : block_n == 64 ? smem_bytes<64>() : -1;
 }
 
-// lowered: (M, K), dy: (M, Cout), partial: (slices, K, Cout) scratch,
-// dw: (K, Cout); all fp32 and contiguous.
+// lowered: (M, K), dy: (M, Cout), dysplit: scratch of 2 * Cout * M4 floats
+// (M4 = M rounded up to 4), 16-byte aligned; partial: (slices, K, Cout)
+// scratch; dw: (K, Cout); all fp32 and contiguous.
 // slices * slice_rows >= M > (slices - 1) * slice_rows, slice_rows % 32 == 0;
 // block_n (64 or 96) is the tile's width in output channels. Returns
 // cudaGetLastError() after the launches.
-extern "C" int wgrad_launch(const void* lowered, const void* dy, void* partial, void* dw, int M,
-                            int K, int Cout, int slice_rows, int slices, int block_n, int device,
-                            void* stream) {
+extern "C" int wgrad_launch(const void* lowered, const void* dy, void* dysplit, void* partial,
+                            void* dw, int M, int K, int Cout, int slice_rows, int slices,
+                            int block_n, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (M < 1 || K < 1 || Cout < 1 || slices < 1 || slice_rows < 1 || slice_rows % kBQ != 0 ||
       static_cast<long long>(slices) * slice_rows < M ||
       static_cast<long long>(slices - 1) * slice_rows >= M || slices > 65535 ||
-      static_cast<long long>(M) + slice_rows > 0x7fffffffLL)
+      static_cast<long long>(M) + slice_rows > 0x7fffffffLL - 3)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(dysplit) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const float* a = static_cast<const float*>(lowered);
   const float* b = static_cast<const float*>(dy);
+  float* bs = static_cast<float*>(dysplit);
   float* p = static_cast<float*>(partial);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool avec = K % 4 == 0 && (reinterpret_cast<uintptr_t>(lowered) & 15) == 0;
-  const bool bvec = Cout % 4 == 0 && (reinterpret_cast<uintptr_t>(dy) & 15) == 0;
+  const bool atma = K % 4 == 0 && (reinterpret_cast<uintptr_t>(lowered) & 15) == 0;
   if (block_n == 96)
-    err = dispatch_vec<96>(avec, bvec, a, b, p, M, K, Cout, slice_rows, slices, s);
+    err = atma ? launch<96, true>(a, b, bs, p, M, K, Cout, slice_rows, slices, s)
+               : launch<96, false>(a, b, bs, p, M, K, Cout, slice_rows, slices, s);
   else if (block_n == 64)
-    err = dispatch_vec<64>(avec, bvec, a, b, p, M, K, Cout, slice_rows, slices, s);
+    err = atma ? launch<64, true>(a, b, bs, p, M, K, Cout, slice_rows, slices, s)
+               : launch<64, false>(a, b, bs, p, M, K, Cout, slice_rows, slices, s);
   else
     err = cudaErrorInvalidValue;
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long kn = static_cast<long long>(K) * Cout;
-  const long long blocks = (kn + 255) / 256;
-  wgrad_reduce_kernel<<<static_cast<unsigned>(blocks < 4096 ? blocks : 4096), 256, 0, s>>>(
-      p, static_cast<float*>(dw), kn, slices);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(slice_sum<conv_wgrad>(p, static_cast<float*>(dw),
+                                                static_cast<long long>(K) * Cout, slices, s));
 }

@@ -9,10 +9,10 @@ CUDA kernels' own knobs (``bwd.ConvTiles``).
   the three ring layouts) and refuses an unknown pass or width; the
   compiled kernels' own values are held to it on the card
   (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 17);
-- every candidate fits the budget, the default rule's first; a budget
-  under dgrad's 96-wide ring leaves dgrad the 64-wide tile (and forces a
-  re-probe of a cached choice that no longer fits), one under the
-  forward's 64-wide block leaves no forward tile;
+- every candidate fits the budget, the default rule's first; the three
+  kernels share one ring layout, so a budget under the 96-wide block
+  leaves every pass the 64-wide tile (and forces a re-probe of a cached
+  choice that no longer fits), one under the 64-wide block leaves none;
 - the cache ignores the batch and respects the stride and the device
   type; a layer never probed runs ``DEFAULT_TILES``, which is the rule
   the kernels ran before the autotuner (the same widths and wgrad split);
@@ -41,9 +41,8 @@ from repro_torch.models import cnn as C
 from repro_torch.obs import spans
 
 CPU = torch.device("cpu")
-BUDGET_64 = 55_296         # every fwd/wgrad 64-wide block, none of the 96s
-DGRAD_64 = 132_160         # dgrad's 64-wide block: every fwd/wgrad width
-DGRAD_96 = 164_928         # dgrad's 96-wide block, the largest of all
+BLOCK_64 = 132_160         # every pass's 64-wide block (one ring layout)
+BLOCK_96 = 164_928         # every pass's 96-wide block
 
 
 @pytest.fixture(autouse=True)
@@ -73,9 +72,9 @@ def _fake_probe(monkeypatch, favor_last=True):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("pass_,block_n,want", [
-    ("fwd", 64, 55_296), ("fwd", 96, 67_584),
-    ("wgrad", 64, 55_296), ("wgrad", 96, 67_584),
-    ("dgrad", 64, DGRAD_64), ("dgrad", 96, DGRAD_96)])
+    ("fwd", 64, BLOCK_64), ("fwd", 96, BLOCK_96),
+    ("wgrad", 64, BLOCK_64), ("wgrad", 96, BLOCK_96),
+    ("dgrad", 64, BLOCK_64), ("dgrad", 96, BLOCK_96)])
 def test_smem_model_is_the_kernels_ring_layout(pass_, block_n, want):
     assert smem_bytes(pass_=pass_, block_n=block_n) == want
 
@@ -96,29 +95,31 @@ def test_smem_model_unknown_pass_or_width_rejected():
 # ---------------------------------------------------------------------------
 
 def test_default_tiles_are_the_fixed_rule():
-    """An unprobed layer runs what every layer ran before the autotuner:
-    each width the one that pads its channels least, wgrad's split from
-    ``WGRAD_TARGET_BLOCKS``."""
+    """An unprobed layer runs the fixed rule: the forward's and wgrad's
+    width the one that takes the fewest tiles of Cout, dgrad's the one
+    that pads Cin least, wgrad's split from ``WGRAD_TARGET_BLOCKS``."""
     for xs, ws, s in C.conv_layer_shapes(C.CAFFENET, 64):
         t = A.DEFAULT_TILES(ws)
         kh, kw, cin, cout = ws
         assert t == bwd.default_tiles(ws) == A.cached_tiles(xs, ws, s)
         assert (t.fwd_bn, t.wgrad_bn, t.dgrad_bn) == (
-            bwd.dgrad_block_n(cout), bwd.dgrad_block_n(cout),
+            bwd.out_block_n(cout), bwd.out_block_n(cout),
             bwd.dgrad_block_n(cin))
         ho = (xs[1] - kh) // s + 1
         m, k = xs[0] * ho * ho, kh * kw * cin
         assert bwd.wgrad_slices(m, k, cout) == bwd.wgrad_slices(
             m, k, cout, t.wgrad_bn, t.wgrad_blocks)
     assert [A.DEFAULT_TILES(ws).fwd_bn for _, ws, _ in
-            C.conv_layer_shapes(C.CAFFENET, 64)] == [96, 64, 96, 96, 64]
+            C.conv_layer_shapes(C.CAFFENET, 64)] == [96, 96, 96, 96, 96]
+    assert [A.DEFAULT_TILES(ws).dgrad_bn for _, ws, _ in
+            C.conv_layer_shapes(C.CAFFENET, 64)] == [64, 96, 64, 96, 96]
 
 
 @pytest.mark.parametrize("layer", range(5))
 def test_tile_candidates_fit_the_budget_default_first(layer):
     xs, ws, s = C.conv_layer_shapes(C.CAFFENET, 64)[layer]
     dflt = A.DEFAULT_TILES(ws)
-    for budget in (A.budget_bytes_of(CPU), DGRAD_96, DGRAD_64):
+    for budget in (A.budget_bytes_of(CPU), BLOCK_96, BLOCK_64):
         cands = A.tile_candidates(xs, ws, s, budget_bytes=budget,
                                   device=CPU)
         for p in ("fwd", "dgrad"):
@@ -126,7 +127,7 @@ def test_tile_candidates_fit_the_budget_default_first(layer):
                        for bn in cands[p])
         assert all(smem_bytes(pass_="wgrad", block_n=bn) <= budget
                    for bn, _ in cands["wgrad"])
-        if budget >= DGRAD_96:
+        if budget >= BLOCK_96:
             assert cands["fwd"][0] == dflt.fwd_bn
             assert cands["dgrad"][0] == dflt.dgrad_bn
             assert cands["wgrad"][0] == (dflt.wgrad_bn, dflt.wgrad_blocks)
@@ -138,16 +139,13 @@ def test_tile_candidates_fit_the_budget_default_first(layer):
                                         cout, bn, blocks))
                   for bn, blocks in cands["wgrad"]]
         assert len(set(splits)) == len(splits)
-    # dgrad's wgmma ring is the largest block: a budget under its 96-wide
-    # tile leaves it the 64-wide one while fwd and wgrad keep both widths
-    tiny = A.tile_candidates(xs, ws, s, budget_bytes=DGRAD_64, device=CPU)
-    assert tiny["dgrad"] == [64]
-    assert sorted(tiny["fwd"]) == [64, 96]
-    assert {bn for bn, _ in tiny["wgrad"]} == {64, 96}
-    with pytest.raises(ValueError, match="no dgrad tile fits"):
-        A.tile_candidates(xs, ws, s, budget_bytes=DGRAD_64 - 1, device=CPU)
+    # the three wgmma rings are one layout: a budget under the 96-wide
+    # block leaves every pass the 64-wide one, and under that none fits
+    tiny = A.tile_candidates(xs, ws, s, budget_bytes=BLOCK_64, device=CPU)
+    assert tiny["dgrad"] == tiny["fwd"] == [64]
+    assert {bn for bn, _ in tiny["wgrad"]} == {64}
     with pytest.raises(ValueError, match="no fwd tile fits"):
-        A.tile_candidates(xs, ws, s, budget_bytes=BUDGET_64 - 1, device=CPU)
+        A.tile_candidates(xs, ws, s, budget_bytes=BLOCK_64 - 1, device=CPU)
 
 
 def test_budget_off_the_card_is_the_sm90_opt_in():
@@ -185,10 +183,10 @@ def test_autotune_caches_per_shape_stride_and_device(monkeypatch):
         assert A.cached_tiles(*key) == A.DEFAULT_TILES(key[1])
     # a SMALLER budget the cached choice does not fit forces a re-probe
     calls = _fake_probe(monkeypatch)
-    assert A._max_smem(t1) > DGRAD_64
-    t2 = A.autotune_tiles(x_shape, w_shape, 1, budget_bytes=DGRAD_64,
+    assert A._max_smem(t1) > BLOCK_64
+    t2 = A.autotune_tiles(x_shape, w_shape, 1, budget_bytes=BLOCK_64,
                           device=CPU, iters=1)
-    assert calls and A._max_smem(t2) <= DGRAD_64
+    assert calls and A._max_smem(t2) <= BLOCK_64
     assert A.cached_tiles(x_shape, w_shape, 1, CPU) == t2
     # a larger one keeps the cached choice
     monkeypatch.setattr(A.timing, "probe", lambda *a, **k: (_ for _ in ()

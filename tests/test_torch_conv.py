@@ -176,7 +176,9 @@ def test_tiles_and_wgrad_slices():
         assert rows <= bwd.WGRAD_MAX_SLICE_ROWS
         assert (s - 1) * rows < m <= s * rows
         assert bwd.dgrad_block_n(n) == bn     # the tile pads Cout least
-        tiles = math.ceil(k / bwd.WGRAD_TILE_K) * math.ceil(n / bn)
+        # wgrad's own default width: the fewest tiles of Cout
+        tiles = (math.ceil(k / bwd.WGRAD_TILE_K)
+                 * math.ceil(n / bwd.out_block_n(n)))
         # enough blocks to fill the card, unless every slice is one stage
         assert s * tiles >= bwd.WGRAD_TARGET_BLOCKS or rows == 32
 

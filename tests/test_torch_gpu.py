@@ -44,7 +44,13 @@ box (hd 128 and 256), hd 32's 64-byte swizzle, a batch row whose keys end
 mid-box while the next row's are NaN (never read), its shared memory equal
 to ``ops.smem_bytes``; dgrad's 128-pixel tiles (one pixel past, whole
 tiles), a one-channel stage with 4-byte copies and stride 3, at both
-widths.
+widths; the forward's and wgrad's tiles at both widths: a partial
+128-row tile, Cout below one tile, ragged Cout (50, 33: the W and dY
+boxes past Cout zero-filled), conv1's K = 363 at stride 4 (4-byte
+gathers; wgrad's A by cp.async, TMA refusing its 1452-byte rows) and
+stride 3, the residual bitwise and both kernels' same bits on a second
+call; the forward at conv1 and wgrad at conv1's rows at the planned
+group batch 93.
 """
 import dataclasses
 import warnings
@@ -433,6 +439,45 @@ def test_dgrad_wgmma_tile_edges(card, x_shape, w_shape, stride, block_n):
                                          tiles=tiles), dx)
 
 
+@pytest.mark.parametrize("block_n", [64, 96])
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((1, 3, 43, 40), (3, 3, 40, 24), 1),    # M = 41 < one tile; Cout < BN
+    ((3, 13, 13, 24), (5, 5, 24, 50), 1),   # ragged Cout 50; K = 600
+    ((3, 8, 16, 100), (2, 2, 100, 33), 1),  # Cout 33, K = 400
+    ((4, 63, 63, 3), (11, 11, 3, 96), 4),   # conv1's K = 363 at stride 4
+    ((2, 14, 14, 64), (4, 4, 64, 96), 3)],  # stride 3
+    ids=["M41", "cout50", "cout33", "k363-s4", "stride3"])
+def test_fwd_and_wgrad_wgmma_tile_edges(card, x_shape, w_shape, stride,
+                                        block_n):
+    """The wgmma forward's and wgrad's edges at both widths: partial
+    128-row tiles, W and dY boxes past Cout and K zero-filled by TMA, the
+    4-byte gathers of conv1's K = 363 (wgrad's A by cp.async there); the
+    residual bitwise, one launch a call, the same bits on a second
+    call."""
+    g = torch.Generator(device=card).manual_seed(sum(x_shape) + block_n)
+    kh, kw = w_shape[:2]
+    x = torch.randn(x_shape, generator=g, device=card)
+    w = torch.randn(w_shape, generator=g, device=card) * 0.05
+    tiles = dataclasses.replace(lc_bwd.default_tiles(w_shape),
+                                fwd_bn=block_n, wgrad_bn=block_n)
+    before = lowering_conv_cuda.launches
+    y, low = lowering_conv_cuda(x, w, stride=stride, return_lowered=True,
+                                tiles=tiles)
+    assert lowering_conv_cuda.launches == before + 1
+    _fp32_close(y, lowered_conv_ref(x, w, stride))
+    want_low = lower(x, kh, kw, stride)
+    assert torch.equal(low.reshape(want_low.shape), want_low)
+    y2, low2 = lowering_conv_cuda(x, w, stride=stride, return_lowered=True,
+                                  tiles=tiles)
+    assert torch.equal(y2, y) and torch.equal(low2, low)
+    dy = torch.randn(y.shape, generator=g, device=card)
+    before = lc_bwd.wgrad_cuda.launches
+    dw = lc_bwd.wgrad_cuda(low, dy, w_shape, tiles=tiles)
+    assert lc_bwd.wgrad_cuda.launches == before + 1
+    _fp32_close(dw, lc_bwd.wgrad_ref(want_low, dy, w_shape))
+    assert torch.equal(lc_bwd.wgrad_cuda(low, dy, w_shape, tiles=tiles), dw)
+
+
 @pytest.mark.parametrize("x_shape,w_shape,stride", [
     ((8, 27, 27, 96), (5, 5, 96, 256), 1),      # CaffeNet conv2
     ((8, 13, 13, 256), (3, 3, 256, 384), 1),    # conv3
@@ -459,8 +504,11 @@ def test_dgrad_3xtf32_kernel_holds_fp32_limits(card, x_shape, w_shape,
 @pytest.mark.parametrize("x_shape,w_shape,stride", [
     *C.conv_layer_shapes(C.CAFFENET, 8),        # CaffeNet conv1-5, batch 8
     ((8, 15, 15, 40), (3, 3, 40, 70), 1),       # ragged stage and Cout tile
-    ((8, 27, 27, 96), (5, 5, 96, 256), 2)],     # stride 2
-    ids=["conv1", "conv2", "conv3", "conv4", "conv5", "ragged", "stride2"])
+    ((8, 27, 27, 96), (5, 5, 96, 256), 2),      # stride 2
+    ((8, 13, 13, 70), (3, 3, 70, 50), 1),       # ragged Cout 50, K = 630
+    C.conv_layer_shapes(C.CAFFENET, 93)[0]],    # conv1 at the planned batch
+    ids=["conv1", "conv2", "conv3", "conv4", "conv5", "ragged", "stride2",
+         "cout50", "conv1-b93"])
 def test_lowering_conv_3xtf32_kernel_holds_fp32_limits(card, x_shape,
                                                       w_shape, stride):
     g = torch.Generator(device=card).manual_seed(w_shape[3] + stride)
@@ -484,9 +532,10 @@ def test_lowering_conv_3xtf32_kernel_holds_fp32_limits(card, x_shape,
     (64 * 11 * 11, (3, 3, 70, 50)),        # Cout % 4 != 0: 4-byte copies
     (64 * 13 * 13, (3, 3, 130, 36)),       # ragged K and Cout tiles
     (3 * 11 * 11, (3, 3, 96, 64)),         # M no multiple of the 32-row stage
-    (25, (3, 3, 96, 96))],                 # M < 32: one ragged stage
+    (25, (3, 3, 96, 96)),                  # M < 32: one ragged stage
+    (93 * 55 * 55, (11, 11, 3, 96))],      # conv1 at the planned batch 93
     ids=["conv1", "conv2", "conv3", "conv4", "conv5", "cout50", "cout36",
-         "m363", "m25"])
+         "m363", "m25", "conv1-b93"])
 def test_wgrad_3xtf32_kernel_holds_fp32_limits(card, m, kshape):
     g = torch.Generator(device=card).manual_seed(m + kshape[3])
     kh, kw, cin, cout = kshape
@@ -777,7 +826,7 @@ def test_every_tile_candidate_matches_plain(card, x_shape, w_shape, stride):
 def test_smem_model_matches_the_compiled_kernels(card):
     from repro_torch.kernels.lowering_conv import lowering_conv as lc
     for pass_ in ("fwd", "wgrad", "dgrad"):
-        for bn in lc.DGRAD_BLOCK_N:
+        for bn in lc.BLOCK_N:
             assert lc.kernel_smem_bytes(pass_, bn) == \
                 lc.smem_bytes(pass_=pass_, block_n=bn)
         assert lc.kernel_smem_bytes(pass_, 128) == -1

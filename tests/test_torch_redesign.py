@@ -29,8 +29,9 @@ on numpy-seeded inputs, against the JAX package:
   64 at hd 256, p as 2^(x log2 e)), with cases at its edges (Sk one key
   past a tile, a window that skips whole 128-key tiles, hd 128 and 256).
 - **shared memory**: the flash kernel's block (both dtypes, every head
-  dim) and dgrad's (both widths) fit the 232,448 bytes an sm_90 block may
-  use.
+  dim) and the forward's, wgrad's and dgrad's (both widths) fit the
+  232,448 bytes an sm_90 block may use; the TF32 split scratches of W
+  (forward, dgrad) and dY (wgrad) have 16-byte rows.
 - **paged decode** (``csrc/paged_attention.cu``): the live keys cut into
   16-slot tiles and split over ``paged_splits`` blocks as the kernel cuts
   them, the bf16 kernel's four warps taking every fourth tile of a split
@@ -47,7 +48,11 @@ on numpy-seeded inputs, against the JAX package:
   ``lowering_conv_pallas(..., interpret=True)`` at CaffeNet's conv1-5
   kernel shapes (reduced batch and image) within 1e-5 relative RMS, while
   one TF32 product misses that limit; the gathered residual is bitwise the
-  port's and the JAX ``lower``.
+  port's and the JAX ``lower``. Again in the wgmma kernel's step order
+  (each 32-column stage summed apart in 8-column steps, big*small,
+  small*big, big*big one after the other) and split over K as the wrapper
+  splits the shapes (each slice's partial apart, then summed in slice
+  order), at the same shapes and limits.
 - **wgrad** (``csrc/wgrad.cu``): dW = lowered^T @ dY with the M rows cut
   into ``wgrad_slices``'s slices, each slice summed in 32-row stages (each
   stage summed apart and then added) and the partials added in slice
@@ -55,7 +60,8 @@ on numpy-seeded inputs, against the JAX package:
   ``wgrad_pallas(..., interpret=True)`` at CaffeNet's conv1-5 kernel
   shapes (reduced batch and image) within 1e-5 relative RMS, one case a
   single 4900-row slice past ``WGRAD_MAX_SLICE_ROWS``; one TF32 product
-  misses that limit.
+  misses that limit. Again in the wgmma kernel's step order (each 32-row
+  stage summed apart in 8-row steps), at the same cases and limits.
 """
 import math
 
@@ -228,6 +234,9 @@ def _step_product(a, b, mode):
             part = part + ak @ bk
             continue
         ab, bb = tf32(ak), tf32(bk)
+        if mode == "1xtf32":
+            part = part + ab @ bb
+            continue
         asm, bsm = tf32_truncated(ak - ab), tf32_truncated(bk - bb)
         part = part + ab @ bsm
         part = part + asm @ bb
@@ -302,13 +311,26 @@ def test_wgmma_3xtf32_dgrad_in_step_order_holds_the_fp32_limit(
     assert _rel_max(three, want) <= 1e-4
 
 
-@pytest.mark.parametrize("block_n", lc.DGRAD_BLOCK_N)
+@pytest.mark.parametrize("block_n", lc.BLOCK_N)
 def test_dgrad_shared_memory_fits_a_block(block_n):
     """The wgmma ring (4 stages of 128 pixels and BN channels of W's big
     and small halves, 128-byte rows) fits an sm_90 block."""
-    want = (1024 + lc.DGRAD_STAGES * (lc.DGRAD_BLOCK_M + 2 * block_n) * 128
-            + 16 * lc.DGRAD_STAGES)
+    want = (1024 + lc.RING_STAGES * (lc.BLOCK_M + 2 * block_n) * 128
+            + 16 * lc.RING_STAGES)
     assert lc.smem_bytes(pass_="dgrad", block_n=block_n) == want
+    assert want <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("block_n", lc.BLOCK_N)
+@pytest.mark.parametrize("pass_", ["fwd", "wgrad"])
+def test_fwd_and_wgrad_shared_memory_fit_a_block(pass_, block_n):
+    """The forward's and wgrad's wgmma rings: 4 stages of a 128-row A tile
+    (pixels x 32 columns of K; rows of dW x 32 reduction rows) and the B
+    tile's big and small halves (BN rows of 32 fp32), 1024 bytes of
+    alignment slack and two mbarriers a stage, within an sm_90 block."""
+    want = (1024 + lc.RING_STAGES * (lc.BLOCK_M * 128 + 2 * block_n * 128)
+            + 16 * lc.RING_STAGES)
+    assert lc.smem_bytes(pass_=pass_, block_n=block_n) == want
     assert want <= SMEM_LIMIT
 
 
@@ -318,6 +340,23 @@ def test_dgrad_split_scratch_rows_are_16_byte_aligned():
     assert bwd.dgrad_split_floats((5, 5, 96, 256)) == 2 * 25 * 96 * 256
     assert bwd.dgrad_split_floats((3, 3, 70, 50)) == 2 * 9 * 70 * 52
     assert bwd.dgrad_split_floats((3, 3, 8, 33)) == 2 * 9 * 8 * 36
+
+
+def test_fwd_split_scratch_rows_are_16_byte_aligned():
+    """The forward's W halves, transposed: (Cout, K4) each, K4 = K rounded
+    up to 4 floats (TMA reads rows on 16-byte strides)."""
+    assert lc.fwd_split_floats((11, 11, 3, 96)) == 2 * 96 * 364   # K = 363
+    assert lc.fwd_split_floats((5, 5, 96, 256)) == 2 * 256 * 2400
+    assert lc.fwd_split_floats((3, 3, 70, 50)) == 2 * 50 * 632    # K = 630
+    assert lc.fwd_split_floats((3, 3, 1, 8)) == 2 * 8 * 12        # K = 9
+
+
+def test_wgrad_split_scratch_rows_are_16_byte_aligned():
+    """wgrad's dY halves, transposed: (Cout, M4) each, M4 = M rounded up
+    to 4 floats."""
+    assert bwd.wgrad_split_floats(64 * 55 * 55, 96) == 2 * 96 * 193600
+    assert bwd.wgrad_split_floats(3 * 11 * 11, 64) == 2 * 64 * 364
+    assert bwd.wgrad_split_floats(25, 96) == 2 * 96 * 28
 
 
 # ---------------------------------------------------------------------------
@@ -712,11 +751,18 @@ def test_paged_shared_memory_fits_a_block(hd):
 # lowering-conv forward: the implicit GEMM in flat K order
 # ---------------------------------------------------------------------------
 
-def implicit_forward(x, w, stride, mode="fp32"):
+def implicit_forward(x, w, stride, mode="fp32", stage=_product,
+                     slice_stages=None):
     """y and the lowered residual as the kernel builds them: column
     k = (i, j, c) of row (b, ho, wo) gathered from x[b, ho*s + i, wo*s + j,
     c], in flat K order; the product in stages of 32 columns, each summed
-    apart and added to the running sum."""
+    apart (by ``stage``) and added to the running sum. ``stage=
+    _step_product`` is the wgmma kernel's order: each stage in 8-column
+    steps from a fresh tile (W's halves come from the prologue's split:
+    the same values as a split per stage; every row is its own sum, so the
+    128-row tiles do not enter). ``slice_stages``: K split into runs of
+    that many stages, each run's sum a partial of its own, the partials
+    added in slice order (``lowering_conv.fwd_k_slices``)."""
     b, h, wd, cin = x.shape
     kh, kw, _, cout = w.shape
     ho, wo = (h - kh) // stride + 1, (wd - kw) // stride + 1
@@ -728,17 +774,24 @@ def implicit_forward(x, w, stride, mode="fp32"):
     low = x[:, rows, cols, c]                          # (B, Ho, Wo, K)
     a, wm = low.reshape(-1, K), w.reshape(K, cout)
     y = torch.zeros((a.shape[0], cout), dtype=torch.float32)
-    for k0 in range(0, K, STAGE):
-        y += _product(a[:, k0:k0 + STAGE], wm[k0:k0 + STAGE], mode)
+    run = STAGE * (slice_stages or -(-K // STAGE))
+    for z0 in range(0, K, run):
+        part = torch.zeros_like(y)
+        for k0 in range(z0, min(K, z0 + run), STAGE):
+            part += stage(a[:, k0:k0 + STAGE], wm[k0:k0 + STAGE], mode)
+        y += part
     return y.reshape(b, ho, wo, cout), low
 
 
-@pytest.mark.parametrize("layer,x_shape,w_shape,stride", [
+FWD_CASES = [
     ("conv1", (2, 23, 23, 3), (11, 11, 3, 96), 4),
     ("conv2", (2, 9, 9, 96), (5, 5, 96, 256), 1),
     ("conv3", (2, 7, 7, 256), (3, 3, 256, 384), 1),
     ("conv4", (2, 6, 6, 384), (3, 3, 384, 384), 1),
-    ("conv5", (2, 5, 5, 384), (3, 3, 384, 256), 1)])
+    ("conv5", (2, 5, 5, 384), (3, 3, 384, 256), 1)]
+
+
+@pytest.mark.parametrize("layer,x_shape,w_shape,stride", FWD_CASES)
 def test_3xtf32_forward_in_flat_k_order_matches_jax(layer, x_shape, w_shape,
                                                     stride):
     """CaffeNet's kernel shapes (K = 363, 2400, 2304, 3456, 3456) with the
@@ -769,15 +822,69 @@ def test_3xtf32_forward_in_flat_k_order_matches_jax(layer, x_shape, w_shape,
     assert _rel_rms(one, want_xla) > 1e-5          # why three products
 
 
+@pytest.mark.parametrize("layer,x_shape,w_shape,stride", FWD_CASES)
+def test_wgmma_3xtf32_forward_in_step_order_matches_jax(layer, x_shape,
+                                                        w_shape, stride):
+    """The wgmma kernel's order on the same inputs as the flat-K oracle
+    (CaffeNet's kernel shapes, batch 2, reduced image), split over K as the
+    wrapper splits these shapes (2-8 slices), at its limits."""
+    rng = np.random.default_rng(w_shape[0] * 1000 + w_shape[3])
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    w = (rng.standard_normal(w_shape) * 0.05).astype(np.float32)
+    want_xla = np.asarray(jlc.lowering_conv_xla(jnp.asarray(x),
+                                                jnp.asarray(w),
+                                                stride=stride))
+    want_pallas = np.asarray(lowering_conv_pallas(
+        jnp.asarray(x), jnp.asarray(w), stride=stride, interpret=True))
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    kh, kw, cin, cout = w_shape
+    ho = (x_shape[1] - kh) // stride + 1
+    per, slices = lc.fwd_k_slices(x_shape[0] * ho * ho, kh * kw * cin, cout,
+                                  lc.out_block_n(cout))
+    assert slices > 1                      # the split is exercised
+    for mode in ("fp32", "3xtf32"):
+        y, low = implicit_forward(xt, wt, stride, mode, _step_product, per)
+        for want in (want_xla, want_pallas):
+            assert _rel_rms(y, want) <= 1e-5, mode
+            assert _rel_max(y, want) <= 1e-4, mode
+    assert torch.equal(low.reshape(-1, low.shape[-1]),
+                       lower(xt, kh, kw, stride))
+    one, _ = implicit_forward(xt, wt, stride, "1xtf32", _step_product, per)
+    assert _rel_rms(one, want_xla) > 1e-5          # why three products
+
+
+def test_forward_k_split_fills_the_card_at_caffenet_shapes():
+    """At group batch 64, CaffeNet's conv4 and conv5 (100 and 39 tiles of
+    128 x 96 on 132 SMs) are split over K; conv1-3 (1513, 795 and 164
+    tiles) are not. Every split covers K's stages once, no slice empty."""
+    from repro_torch.models import cnn as C
+    got = []
+    for xs, ws, s in C.conv_layer_shapes(C.CAFFENET, 64):
+        kh, kw, cin, cout = ws
+        ho = (xs[1] - kh) // s + 1
+        k = kh * kw * cin
+        per, slices = lc.fwd_k_slices(xs[0] * ho * ho, k, cout,
+                                      lc.out_block_n(cout))
+        n_k = -(-k // STAGE)
+        assert (slices - 1) * per < n_k <= slices * per
+        got.append(slices)
+    assert got == [1, 1, 1, 2, 4]
+    assert lc.fwd_k_slices(5, 9, 4, 64) == (1, 1)   # one stage: no split
+
+
 # ---------------------------------------------------------------------------
 # wgrad: split over the M rows, 32-row stages, partials in slice order
 # ---------------------------------------------------------------------------
 
-def split_wgrad(low, dy, mode="fp32", slice_rows=None):
+def split_wgrad(low, dy, mode="fp32", slice_rows=None, stage=_product):
     """dW = low^T @ dy as the kernel sums it: the M rows cut into slices of
     ``bwd.wgrad_slices``'s rows (or ``slice_rows``), each slice a sum of
-    32-row stages, each stage summed apart and added to the slice's running
-    sum, and the slices' partials added in slice order."""
+    32-row stages, each stage summed apart (by ``stage``) and added to the
+    slice's running sum, and the slices' partials added in slice order.
+    ``stage=_step_product`` is the wgmma kernel's order: each stage in
+    8-row steps from a fresh tile (dY's halves come from the prologue's
+    split: the same values as a split per stage; every element of dW is
+    its own sum, so the 128 x BN tiles do not enter)."""
     m, k = low.shape
     cout = dy.shape[1]
     rows = slice_rows or bwd.wgrad_slices(m, k, cout)[0]
@@ -787,7 +894,7 @@ def split_wgrad(low, dy, mode="fp32", slice_rows=None):
         part = torch.zeros((k, cout), dtype=torch.float32)
         for q0 in range(z0, min(m, z0 + rows), step):
             q1 = min(m, z0 + rows, q0 + step)
-            part += _product(low[q0:q1].T, dy[q0:q1], mode)
+            part += stage(low[q0:q1].T, dy[q0:q1], mode)
         dw += part
     return dw
 
@@ -836,4 +943,34 @@ def test_3xtf32_split_wgrad_matches_jax(case):
     plain = bwd.wgrad_cuda(low, dyt, w_shape)
     assert _rel_rms(plain, want_xla) <= 1e-5
     one = split_wgrad(low, dyt, "1xtf32", slice_rows).reshape(w_shape)
+    assert _rel_rms(one, want_xla) > 1e-5          # why three products
+
+
+@pytest.mark.parametrize("case", list(WGRAD_CASES))
+def test_wgmma_3xtf32_wgrad_in_step_order_matches_jax(case):
+    """The wgmma kernel's order on the same inputs as the 32-row-stage
+    oracle (CaffeNet's kernel shapes at a reduced batch and image, the
+    wrapper's slices; one 4900-row slice past the cap), at its limits."""
+    x_shape, w_shape, stride, slice_rows = WGRAD_CASES[case]
+    kh, kw, _, cout = w_shape
+    rng = np.random.default_rng(sum(w_shape) + len(case))
+    x = rng.standard_normal(x_shape).astype(np.float32)
+    low = lower(torch.from_numpy(x), kh, kw, stride)        # (M, K)
+    m, k = low.shape
+    ho = (x_shape[1] - kh) // stride + 1
+    dy = rng.standard_normal((x_shape[0], ho, ho, cout)).astype(np.float32)
+    dyt = torch.from_numpy(dy).reshape(m, cout)
+    jlow = jnp.asarray(low.numpy())
+    want_xla = np.asarray(jbwd.wgrad_xla(jlow, jnp.asarray(dy), w_shape))
+    want_pallas = np.asarray(jbwd.wgrad_pallas(
+        jlow.reshape(x_shape[0], ho, ho, k), jnp.asarray(dy), w_shape,
+        interpret=True))
+    for mode in ("fp32", "3xtf32"):
+        got = split_wgrad(low, dyt, mode, slice_rows,
+                          _step_product).reshape(w_shape)
+        for want in (want_xla, want_pallas):
+            assert _rel_rms(got, want) <= 1e-5, mode
+            assert _rel_max(got, want) <= 1e-4, mode
+    one = split_wgrad(low, dyt, "1xtf32", slice_rows,
+                      _step_product).reshape(w_shape)
     assert _rel_rms(one, want_xla) > 1e-5          # why three products
