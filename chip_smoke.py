@@ -9,9 +9,9 @@ passed over, nothing falls back to the CPU):
 1. environment: torch / CUDA versions, the card's name and power limit;
 2. build: every kernel from its CUDA source in this checkout (in
    parallel, ``-Xptxas -v`` report printed), timed; then each library's
-   SASS (``cuobjdump -sass``): the flash, lowering-conv, wgrad and dgrad
-   libraries must hold ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile loads)
-   and no ``HMMA`` (mma.sync), the counts printed;
+   SASS (``cuobjdump -sass``): the flash, paged-decode, lowering-conv,
+   wgrad and dgrad libraries must hold ``HGMMA`` (wgmma) and ``UTMALDG``
+   (TMA tile loads) and no ``HMMA`` (mma.sync), the counts printed;
 3. kernels against their plain PyTorch versions at the serving path's
    shapes, bf16 (``atol = rtol = 2e-2``, and a relative RMS error within
    ``1e-2`` of the output's own RMS, which long-context outputs of small
@@ -19,9 +19,13 @@ passed over, nothing falls back to the CPU):
    differ only in summation order and, in bf16, in where the plain version
    rounds: paged decode at position 0, a page boundary, a full table, a
    wrapped ring, a stale retired row, every row at a full table (linear
-   and wrapped ring), and 64-slot pages whose short rows leave whole splits
-   masked (the kernel splits each row's keys over several blocks, checked
-   for the same bits on a second call); flash attention causal at 256 (the
+   and wrapped ring), 256-slot pages whose short rows leave whole splits
+   masked, and the Hopper kernel's edges (G = 16, 8-slot pages, 5-slot
+   pages on its cp.async route, shares ending mid-tile, pos on a key
+   tile's last slot, hd 32 and 64 at full tables; the kernel splits each
+   row's keys over the blocks of one cluster, checked for the same bits
+   on a second call), its shared memory a block equal to
+   ``ops.smem_bytes`` at every head dim; flash attention causal at 256 (the
    served prefill bucket), 512 and 1024, windowed, ragged, and with per-row
    query offsets, then the bf16 tensor-core kernel's edges (hd 32 and 64,
    Sk off the 64-key tile, a window that skips leading tiles, Sq = 1 and
@@ -36,14 +40,16 @@ passed over, nothing falls back to the CPU):
    each launch) beside the plain version, one PyTorch library call
    computing the same function (timed here only; the port never calls
    it), and the card's bound; paged decode also with every row at a full
-   table, flash attention also at recurrentgemma-2b's prefill shapes;
+   table (its splits and cluster size printed beside), flash attention
+   also at recurrentgemma-2b's prefill shapes;
 5. the slice at full width: ``ContinuousServer`` on qwen2-7b (28 layers,
    d_model 3584, bf16 weights made from a seed) with ``attn_impl="cuda"``
    serves Poisson requests twice — scan prefill, then parallel prefill —
    with the kernels' launch counts zeroed just before each run and
    checked just after against the run's own decode steps and prefills;
    then ``torch.profiler`` over full-width decode steps (device idle share
-   and the kernels that take the device time);
+   and the kernels that take the device time; paged decode is one kernel
+   a layer, and a combine kernel fails the phase);
 6. slice parity: at qwen2-7b widths, 2 layers, fp32, ``attn_impl="cuda"``
    and ``"torch"`` agree within ``1e-4`` on the per-step logits of
    ``paged_decode_step`` and, for the server's parallel prefill, on the
@@ -231,6 +237,7 @@ machine, and prints no final line.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import dataclasses
 import json
 import math
@@ -371,7 +378,8 @@ def phase_env(torch) -> str:
 
 #: the libraries whose products must run on wgmma (SASS HGMMA) with tiles
 #: brought by TMA (UTMALDG), and no mma.sync (HMMA)
-WGMMA_LIBS = ("flash_attention", "lowering_conv", "wgrad", "dgrad")
+WGMMA_LIBS = ("flash_attention", "paged_attention", "lowering_conv", "wgrad",
+              "dgrad")
 SASS_COUNTED = ("HGMMA", "UTMALDG", "HMMA")
 
 
@@ -427,12 +435,13 @@ def paged_inputs(torch, dtype, pos, *, stale=(), ring=False, seed=0,
             torch.tensor(pos, dtype=torch.int32, device=dev))
 
 
-def phase_check(torch) -> dict:
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+def check_paged(torch) -> float:
+    """B6 against its plain version, each case called twice for the same
+    bits, and its shared memory a block against ``ops.smem_bytes``;
+    returns the largest bf16 error."""
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    errs = {"paged_attention": 0.0, "flash_attention": 0.0}
+    worst = 0.0
     W = PAGED["n_pages"] * PAGED["page"]
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[-1]
@@ -443,21 +452,43 @@ def phase_check(torch) -> dict:
             # wrapped ring rows (pos >= W) and a stale retired row 7
             ("ring", dict(pos=[0, 15, W - 1, W, 1500, 2 * W - 1, 3000, 900],
                           stale=(7,), ring=True), W),
-            # every row at a full table: all splits hold 8 tiles
+            # every row at a full table: all splits hold 4 key tiles
             ("full table", dict(pos=[W - 1 - 3 * b for b in range(8)]),
              None),
             ("full table ring", dict(pos=[W + 37 * b for b in range(8)],
                                      ring=True), W),
-            # 64-slot pages: a row at pos 5 has 4 live tiles, 3 of them
-            # masked, each a split of its own (weight exp(-1e30 - M) = 0)
+            # 256-slot pages, 4 splits of 4 key tiles: a row at pos 5 has
+            # 4 live tiles, one a split, the last three all masked (their
+            # weight exp(-1e30 - M) = 0)
             ("masked splits", dict(pos=[5, 70, 0, 200, 63, 64, 130, 1000],
-                                   page=64, n_pages=16), None),
+                                   page=256, n_pages=4), None),
             ("masked splits ring", dict(pos=[5, 70, 0, 200, 63, 1500, 130,
-                                             1000], ring=True, page=64,
-                                        n_pages=16), W),
+                                             1000], ring=True, page=256,
+                                        n_pages=4), W),
             # qwen2-moe-a2.7b: 16 kv heads of one query head each (G = 1)
             ("G=1 K=16", dict(pos=[0, 15, 16, W - 1, 900, 100, 517, 777],
                               stale=(4,), K=16, G=1), None),
+            # the Hopper kernel's edges: 16 query heads a kv head, TMA
+            # boxes of 8 slots, 5-slot pages (16-byte cp.async copies, no
+            # TMA), shares ending mid-tile, pos on a key tile's last slot,
+            # hd 32 (64-byte swizzle, 8 stages) and hd 64 at full tables
+            ("G=16 K=2", dict(pos=[0, 64, 191, W - 1, 500, 7, 333, 1000],
+                              K=2, G=16), None),
+            ("page 8", dict(pos=[0, 7, 8, W - 1, 900, 100, 517, 777],
+                            page=8, n_pages=128), None),
+            ("page 5 ring", dict(pos=[0, 4, 5, 999, 1000, 1777, 2500, 321],
+                                 ring=True, page=5, n_pages=200), 1000),
+            ("page 5", dict(pos=[0, 4, 5, 999, 640, 100, 517, 777],
+                            page=5, n_pages=200), None),
+            ("shares end mid-tile", dict(pos=[100, 300, 540, 17, 211, 700,
+                                              905, 45]), None),
+            ("pos on a tile's last slot", dict(pos=[63, 127, 191, 255, 511,
+                                                    767, 959, W - 1]),
+             None),
+            ("hd 32 full table", dict(pos=[W - 1 - 5 * b for b in range(8)],
+                                      hd=32), None),
+            ("hd 64 full table ring", dict(pos=[W + 11 * b for b in range(8)],
+                                           ring=True, hd=64), W),
         ]
         for label, kw, window in cases:
             args = paged_inputs(torch, dtype, **kw)
@@ -468,8 +499,26 @@ def phase_check(torch) -> dict:
                 fail(f"paged_attention {label} {dn}: a second call gave "
                      "other bits (the splits must combine in a fixed order)")
             if dtype is torch.bfloat16:
-                errs["paged_attention"] = max(errs["paged_attention"], e)
+                worst = max(worst, e)
+    for dtype in pa.DTYPES:
+        for hd in pa.HEAD_DIMS:
+            if pa.kernel_smem_bytes(dtype, hd) != pa.smem_bytes(dtype, hd):
+                fail(f"paged_attention {dtype} hd {hd}: the kernel asks for "
+                     f"{pa.kernel_smem_bytes(dtype, hd)} bytes of shared "
+                     f"memory, the model says {pa.smem_bytes(dtype, hd)}")
+    log("[check] paged_attention shared memory a block (bf16 / fp32 by hd): "
+        + ", ".join(f"{hd}: {pa.smem_bytes(torch.bfloat16, hd)} / "
+                    f"{pa.smem_bytes(torch.float32, hd)}"
+                    for hd in pa.HEAD_DIMS) + " = the kernel's own figures ok")
+    return worst
 
+
+def phase_check(torch) -> dict:
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    errs = {"paged_attention": check_paged(torch), "flash_attention": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[-1]
         B, H, K, hd = (FLASH[k] for k in ("B", "H", "K", "hd"))
         dev = torch.device("cuda")
         g = torch.Generator(device=dev).manual_seed(1)
@@ -565,6 +614,7 @@ def phase_time(torch) -> dict:
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import ops as pa
     from repro_torch.kernels.paged_attention.ref import (paged_attention_ref,
                                                          valid_mask)
@@ -595,11 +645,28 @@ def phase_time(torch) -> dict:
     b_ms, b_by = bound(nbytes, flops)
     out["paged_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
                                   bound_ms=b_ms, bound_by=b_by)
+    S = pa.paged_splits(B, K, n, page)
     log(f"[time] paged_attention bf16 B={B} K={K} G={G} hd={hd} page={page} "
-        f"live_tokens={tokens} splits={pa.paged_splits(B, K, n, page)}: "
-        f"kernel_ms={ms:.4f} plain_ms={plain:.4f} library_ms={lib:.4f} (SDPA "
-        f"enable_gqa over the {W}-slot gathered copy) bound_ms={b_ms:.5f} "
-        f"({b_by})")
+        f"live_tokens={tokens} splits={S} cluster=(1, 1, {S}) ring_stages="
+        f"{pa.bf16_stages(hd)}: kernel_ms={ms:.4f} plain_ms={plain:.4f} "
+        f"library_ms={lib:.4f} (SDPA enable_gqa over the {W}-slot gathered "
+        f"copy) bound_ms={b_ms:.5f} ({b_by})")
+    # the split rule's reason: the clusters the card holds at once, and the
+    # time at twice the blocks (clusters of 8 at the serving shapes)
+    clusters = _build.load(pa.KERNEL).paged_attention_max_clusters
+    clusters.argtypes, clusters.restype = [ctypes.c_int] * 4, ctypes.c_int
+    target = pa.SPLIT_TARGET_BLOCKS
+    try:
+        pa.SPLIT_TARGET_BLOCKS = 2 * target
+        S2 = pa.paged_splits(B, K, n, page)
+        ms2 = cuda_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, posd),
+                      iters=50, flush=flush)
+    finally:
+        pa.SPLIT_TARGET_BLOCKS = target
+    log(f"[time] paged_attention split rule: splits={S} -> {B * K} clusters, "
+        f"{clusters(B, K, S, hd)} fit at once, kernel_ms={ms:.4f}; at twice "
+        f"the blocks splits={S2} -> {B * K} clusters, "
+        f"{clusters(B, K, S2, hd)} fit at once, kernel_ms={ms2:.4f}")
     del q, kp, vp, ck, cv
 
     # paged decode with every row at a full table (the longest page walk)
@@ -612,13 +679,16 @@ def phase_time(torch) -> dict:
     tokens = sum(p + 1 for p in pos)
     ms = cuda_ms(torch, lambda: pa.paged_attention(q, kp, vp, table, posd),
                  iters=50, flush=flush)
+    plain = cuda_ms(torch, lambda: paged_attention_ref(q, kp, vp, table, posd),
+                    iters=20, flush=flush)
     lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
         qh, ck, cv, attn_mask=mask, enable_gqa=True), iters=50, flush=flush)
     b_ms, b_by = bound(2 * tokens * K * hd * 2 + 2 * q.numel() * 2
                        + table.numel() * 4 + B * 4, 4 * G * K * hd * tokens)
-    log(f"[time] paged_attention bf16 full table B={B} live_tokens={tokens}: "
-        f"kernel_ms={ms:.4f} library_ms={lib:.4f} (SDPA enable_gqa, gathered "
-        f"copy) bound_ms={b_ms:.5f} ({b_by})")
+    log(f"[time] paged_attention bf16 full table B={B} live_tokens={tokens} "
+        f"splits={S} cluster=(1, 1, {S}): kernel_ms={ms:.4f} plain_ms="
+        f"{plain:.4f} library_ms={lib:.4f} (SDPA enable_gqa, gathered copy) "
+        f"bound_ms={b_ms:.5f} ({b_by})")
     del q, kp, vp, ck, cv
 
     # flash prefill at the serving run's largest bucket (and at 1024)
@@ -766,19 +836,20 @@ def _drive(torch, srv, reqs, mode: str, tag: str = "slice") -> dict:
 
 def log_port_kernels(kernels, names) -> None:
     """The profile's rows of the port's own kernels, by name, whether or
-    not they are among the largest (the split kernels run beside a combine
-    pass of their own)."""
+    not they are among the largest (wgrad and the split conv forward run
+    beside a prologue and a slice sum of their own)."""
     for ms, n, name in kernels:
         if any(k in name for k in names):
             log(f"[profile]   port kernel {ms:8.3f} ms  x{n:<6.0f} "
                 f"{name[:100]}")
 
 
-def _profile_fn(torch, fn, what: str, names, reps: int = 3) -> None:
+def _profile_fn(torch, fn, what: str, names, reps: int = 3) -> list:
     """``fn()`` (ending in a host read) ``reps`` times: wall a call on the
     host clock (no profiler), device busy time (the sum of kernel times
     under ``torch.profiler``), the device's idle share and the kernels
-    that take the time (the port's ``names`` whether or not among them)."""
+    that take the time (the port's ``names`` whether or not among them).
+    Returns the kernels as (ms a call, launches a call, name)."""
     from torch.profiler import ProfilerActivity, profile
     fn()                                                    # warm
     t0 = time.perf_counter()
@@ -805,6 +876,7 @@ def _profile_fn(torch, fn, what: str, names, reps: int = 3) -> None:
     for ms, n, name in kernels[:8]:
         log(f"[profile]   {ms:8.3f} ms  x{n:<6.0f} {name[:80]}")
     log_port_kernels(kernels, names)
+    return kernels
 
 
 def phase_profile(torch, srv, steps: int = 5,
@@ -826,8 +898,13 @@ def phase_profile(torch, srv, steps: int = 5,
     def step():
         return srv._step(table, tok, pos, act, None).cpu()
 
-    _profile_fn(torch, step, f"{what}, 8 active slots",
-                ("paged_split", "paged_combine", "flash_fwd"), reps=steps)
+    kernels = _profile_fn(torch, step, f"{what}, 8 active slots",
+                          ("paged_decode", "flash_fwd"), reps=steps)
+    # B6 is one kernel a layer: the splits combine inside their cluster
+    if any("combine" in name for _, _, name in kernels):
+        fail(f"{what}: a combine kernel ran beside paged decode")
+    if not any("paged_decode" in name for _, _, name in kernels):
+        fail(f"{what}: no paged_decode kernel in the profile")
     for s in range(S):
         srv.alloc.release(s)
 

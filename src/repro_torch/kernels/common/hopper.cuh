@@ -1,12 +1,12 @@
 // Hopper building blocks shared by the port's wgmma kernels (the bf16
-// flash forward and the 3xTF32 conv forward, wgrad and dgrad): mbarriers,
-// TMA tile loads and the host encoding of their tensor maps, warpgroup
-// matrix multiplies (wgmma.mma_async) with shared-memory matrix
-// descriptors, the prologue that splits a matrix into its TF32 halves,
-// transposed, for a K-major wgmma operand, the in-order sum of a split
-// kernel's partials, and the 3xTF32 ring stage of the three conv kernels'
-// consumers. Everything here needs sm_90a.
-// Only B6 (paged decode) uses ptx.cuh alone.
+// flash forward, bf16 paged decode and the 3xTF32 conv forward, wgrad and
+// dgrad): mbarriers, TMA tile loads and the host encoding of their tensor
+// maps, thread-block clusters (their barrier and stores into a peer block's
+// shared memory), warpgroup matrix multiplies (wgmma.mma_async) with
+// shared-memory matrix descriptors, the prologue that splits a matrix into
+// its TF32 halves, transposed, for a K-major wgmma operand, the in-order
+// sum of a split kernel's partials, and the 3xTF32 ring stage of the three
+// conv kernels' consumers. Everything here needs sm_90a.
 //
 // A kernel source includes it as "../../common/hopper.cuh"; the build
 // hashes it into every kernel's library name.
@@ -102,6 +102,55 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 // first use.
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+// Orders this thread's earlier generic-proxy accesses of shared memory
+// (st.shared, cp.async) before later async-proxy ones (wgmma operand reads).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Thread-block clusters: the blocks of a cluster run at once on one GPC and
+// may write into each other's shared memory (distributed shared memory).
+// Every thread of every block of the cluster takes part in each barrier.
+// ---------------------------------------------------------------------------
+
+// This block's rank in its cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The cluster barrier: this thread's memory writes before the arrive
+// (to its own or a peer block's shared memory) are visible to every thread
+// of the cluster after its wait. The relaxed arrive orders nothing: it only
+// says that this block has started, which a block must know of its peers
+// before it writes into their shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of the same offset in block `rank`'s shared
+// memory as the shared::cta address `addr` has in this block's.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// Stores into a peer block's shared memory (a shared::cluster address).
+__device__ __forceinline__ void st_cluster(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b)
+               : "memory");
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // cuTensorMapEncodeTiled, looked up at run time through the CUDA runtime
@@ -221,6 +270,13 @@ inline cudaError_t split_transpose(const float* src, float* dst, int rows, int c
   const dim3 grid((rows4 + 31) / 32, (cols + 31) / 32);
   split_transpose_kernel<Caller><<<grid, dim3(32, 8), 0, s>>>(src, dst, rows, cols, rows4);
   return cudaGetLastError();
+}
+
+// 2^x in one MUFU op (denormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // ---------------------------------------------------------------------------

@@ -247,13 +247,6 @@ namespace wg {
 
 using namespace hopper;
 
-// 2^x in one MUFU op (denormal results flush to 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 constexpr int kWarpgroups = 2;                // 64 query rows each
 constexpr int kBQ = 64 * kWarpgroups;         // query rows per block
 constexpr int kThreads = 128 * kWarpgroups;

@@ -42,7 +42,11 @@ autotune probe and ``--trace-out`` on caffenet-smoke. The wgmma + TMA
 kernels at their edges: the flash kernel's key tiles one key past a TMA
 box (hd 128 and 256), hd 32's 64-byte swizzle, a batch row whose keys end
 mid-box while the next row's are NaN (never read), its shared memory equal
-to ``ops.smem_bytes``; dgrad's 128-pixel tiles (one pixel past, whole
+to ``ops.smem_bytes``; the paged kernel's edges (TMA boxes of 8 slots,
+5-slot pages on its cp.async route, linear and ring, 64- and 256-slot
+pages, G = 16, hd 32 and 64), one device kernel a call under
+``torch.profiler`` (no combine kernel), its shared memory equal to
+``ops.smem_bytes``; dgrad's 128-pixel tiles (one pixel past, whole
 tiles), a one-channel stage with 4-byte copies and stride 3, at both
 widths; the forward's and wgrad's tiles at both widths: a partial
 128-row tile, Cout below one tile, ragged Cout (50, 33: the W and dY
@@ -117,19 +121,11 @@ def test_paged_kernel_matches_plain(card, dtype, tol, window):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("dtype,tol", DTYPES)
-@pytest.mark.parametrize("case", [
-    # (page, n_pages, pos, window, stale rows), B = 4, K = 2, G = 7: each
-    # row's keys split over several blocks
-    (16, 16, (37, 255, 100, 900), None, (3,)),
-    (64, 4, (5, 70, 255, 400), 256, ()),
-    (16, 16, (255, 254, 253, 252), None, ()),
-    (16, 16, (0, 1, 16, 300), 256, ())],
-    ids=["splits-full-stale", "ring-masked-splits", "full-table",
-         "ring-pos0-edges"])
-def test_paged_split_kernel_matches_plain(card, dtype, tol, case):
-    page, n_pages, pos, window, stale = case
-    B, K, G, hd = 4, 2, 7, 128
+def _check_split(card, dtype, tol, *, B, K, G, hd, page, n_pages, pos,
+                 window=None, stale=()):
+    """Pools with each row's own pages (past a linear row's live page the
+    table points at scratch page 0), one launch against the plain version
+    (bf16 also within relative RMS 1e-2), and a second call's bits."""
     g = torch.Generator(device=card).manual_seed(page + sum(pos))
     P = 1 + B * n_pages
     q = torch.randn(B, 1, K * G, hd, generator=g, device=card).to(dtype)
@@ -144,7 +140,6 @@ def test_paged_split_kernel_matches_plain(card, dtype, tol, case):
         table[b] = 0
     args = (q, kp, vp, table.contiguous(),
             torch.tensor(pos, dtype=torch.int32, device=card))
-    assert pa_ops.paged_splits(B, K, n_pages, page) > 1
     before = pa_ops.paged_attention.launches
     got = pa_ops.paged_attention(*args, window=window)
     assert pa_ops.paged_attention.launches == before + 1
@@ -154,6 +149,71 @@ def test_paged_split_kernel_matches_plain(card, dtype, tol, case):
         assert ((got.float() - want.float()).norm()
                 / want.float().norm()).item() <= 1e-2
     assert torch.equal(pa_ops.paged_attention(*args, window=window), got)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (page, n_pages, pos, window, stale rows), B = 4, K = 2, G = 7: each
+    # row's keys split over several blocks
+    (16, 16, (37, 255, 100, 900), None, (3,)),
+    (64, 4, (5, 70, 255, 400), 256, ()),
+    (16, 16, (255, 254, 253, 252), None, ()),
+    (16, 16, (0, 1, 16, 300), 256, ())],
+    ids=["splits-full-stale", "ring-masked-splits", "full-table",
+         "ring-pos0-edges"])
+def test_paged_split_kernel_matches_plain(card, dtype, tol, case):
+    page, n_pages, pos, window, stale = case
+    assert pa_ops.paged_splits(4, 2, n_pages, page) > 1
+    _check_split(card, dtype, tol, B=4, K=2, G=7, hd=128, page=page,
+                 n_pages=n_pages, pos=pos, window=window, stale=stale)
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+@pytest.mark.parametrize("case", [
+    # (B, K, G, hd, page, n_pages, pos, window): the Hopper kernel's
+    # edges, each row split over several blocks of one cluster
+    (4, 2, 7, 128, 8, 32, (0, 7, 255, 100), None),      # TMA boxes of 8
+    (4, 2, 7, 128, 5, 52, (4, 5, 259, 130), None),      # cp.async, no TMA
+    (4, 2, 7, 128, 5, 52, (4, 259, 300, 777), 260),     # the same, a ring
+    (4, 2, 7, 128, 64, 8, (63, 511, 200, 64), None),    # one page a tile
+    (4, 2, 7, 128, 256, 4, (5, 1000, 300, 70), None),   # masked splits
+    (4, 2, 16, 128, 16, 16, (0, 255, 100, 191), None),  # G = 16
+    (4, 2, 7, 32, 16, 64, (1023, 1020, 1017, 1014), None),  # hd 32, full
+    (4, 2, 7, 64, 16, 64, (1030, 1500, 2047, 1024), 1024)],  # hd 64, ring
+    ids=["page8", "page5-cp-async", "page5-ring", "page64",
+         "page256-masked-splits", "G16", "hd32-full-table", "hd64-ring"])
+def test_paged_hopper_kernel_edges(card, dtype, tol, case):
+    B, K, G, hd, page, n_pages, pos, window = case
+    assert pa_ops.paged_splits(B, K, n_pages, page) > 1
+    _check_split(card, dtype, tol, B=B, K=K, G=G, hd=hd, page=page,
+                 n_pages=n_pages, pos=pos, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_call_is_one_kernel(card, dtype):
+    """One device kernel a call (the splits combine inside the cluster):
+    no combine kernel, no scratch."""
+    from torch.profiler import ProfilerActivity, profile
+    args = _paged(card, dtype, B=8, K=4, G=7, n_pages=64,
+                  pos=(1023, 100, 5, 700, 64, 900, 300, 17))
+    pa_ops.paged_attention(*args)                          # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pa_ops.paged_attention(*args)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1, [e.name for e in kernels]
+    assert "paged_decode" in kernels[0].name
+    assert "combine" not in kernels[0].name
+
+
+def test_paged_shared_memory_model_is_the_kernels(card):
+    for hd in pa_ops.HEAD_DIMS:
+        for dtype in pa_ops.DTYPES:
+            assert pa_ops.kernel_smem_bytes(dtype, hd) == \
+                pa_ops.smem_bytes(dtype, hd)
+    assert pa_ops.kernel_smem_bytes(torch.bfloat16, 48) == -1
 
 
 def test_paged_kernel_rejects_bad_operands(card):
@@ -652,7 +712,7 @@ def test_flash_kernel_group_of_one(card, dtype, tol):
 
 @pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_paged_kernel_group_of_one(card, dtype, tol):
-    """G = 1: one live row of the split kernel's 16 mma rows."""
+    """G = 1: one live row of the product's 64."""
     args = _paged(card, dtype, B=4, K=16, G=1, n_pages=16,
                   pos=(5, 0, 255, 130))
     got = pa_ops.paged_attention(*args)

@@ -33,14 +33,17 @@ on numpy-seeded inputs, against the JAX package:
   232,448 bytes an sm_90 block may use; the TF32 split scratches of W
   (forward, dgrad) and dY (wgrad) have 16-byte rows.
 - **paged decode** (``csrc/paged_attention.cu``): the live keys cut into
-  16-slot tiles and split over ``paged_splits`` blocks as the kernel cuts
-  them, the bf16 kernel's four warps taking every fourth tile of a split
-  and merged in warp order, p rounded per tile against the running max of
-  its split, the partials combined in split order; against JAX
+  64-slot key tiles and split over ``paged_splits`` blocks as the kernel
+  cuts them, each block walking its share with one running state in tiles
+  of 64 slots (the bf16 wgmma kernel) or 16 (the fp32 kernel), p rounded
+  per tile against the running max of its split, the splits combined in
+  split order as the cluster combines them; against JAX
   ``paged_attention_pallas(..., interpret=True)`` and the port's
   ``paged_attention_ref`` in fp32 (1e-5) and bf16 (2e-2 and relative RMS
-  1e-2): linear and ring caches, a split whose keys are all masked, a
-  stale retired row, pos 0, full tables, G in {1, 4, 7}.
+  1e-2): linear and ring caches, splits whose keys are all masked (8
+  splits at 256-slot pages), a stale retired row, pos 0 and on a key
+  tile's last slot, shares ending mid-tile, full tables, G in {1, 4, 7,
+  16}, pages of 8 and of 5 slots (the kernel's ``cp.async`` route).
 - **lowering-conv forward** (``csrc/lowering_conv.cu``): the lowered matrix
   gathered column by column in flat K order (taps outer, channels inner),
   the product in stages of 32 columns summed apart, in fp32 and in
@@ -566,9 +569,6 @@ def test_flash_shared_memory_fits_a_block(hd):
 # paged decode: the split over key tiles and the combine in split order
 # ---------------------------------------------------------------------------
 
-WARPS = 4           # the bf16 kernel's warps: each takes every 4th tile
-
-
 def _merge(states):
     """(m, l, acc) states combined in order: weight exp(m - M), M the
     largest m."""
@@ -582,16 +582,17 @@ def _merge(states):
     return big, l_sum, a_sum
 
 
-def split_paged(q, kp, vp, table, pos, *, window=None, lanes=1,
+def split_paged(q, kp, vp, table, pos, *, window=None, tile=pa.KEY_TILE,
                 splits=None):
     """The kernel's paged decode in plain PyTorch: a row's live slots
-    [0, (jmax+1)*page) cut into 16-slot tiles, the tiles split over
-    ``splits`` blocks (``ceil(n_tiles / splits)`` each), each block's tiles
-    dealt to ``lanes`` running states (the bf16 kernel's 4 warps; 1 for the
-    fp32 kernel), scores in fp32 times the scale, -1e30 where the slot is
-    not valid and -inf past the split's end, p rounded to q's type for PV
-    and l summed from the fp32 p; the lanes merged in order, then the
-    splits. Returns (out, number of splits whose keys were all masked)."""
+    [0, (jmax+1)*page) cut into ``pa.KEY_TILE``-slot key tiles, the tiles
+    split over ``splits`` blocks (``ceil(n_tiles / splits)`` each), each
+    block walking its share in tiles of ``tile`` slots (64 for the bf16
+    kernel, 16 for the fp32 one) with one running state: scores in fp32
+    times the scale, -1e30 where the slot is not valid and -inf past the
+    share's end, p rounded to q's type for PV and l summed from the fp32
+    p; the splits that hold tiles merged in split order. Returns (out,
+    number of splits whose keys were all masked)."""
     b, _, h, hd = q.shape
     _, page, kh, _ = kp.shape
     n_pages = table.shape[1]
@@ -619,29 +620,24 @@ def split_paged(q, kp, vp, table, pos, *, window=None, lanes=1,
             qf = q[bi, 0, k * g:(k + 1) * g].float()
             parts = []
             for t0 in range(0, n_t, per):
-                t1 = min(t0 + per, n_t)
-                end = min(t1 * T, live)
-                states = []
-                for lane in range(lanes):
-                    m = torch.full((g,), -1e30)
-                    l = torch.zeros(g)
-                    acc = torch.zeros((g, hd))
-                    for t in range(t0 + lane, t1, lanes):
-                        sl = slots[t * T:(t + 1) * T]
-                        sc = (qf @ keys[sl].T) * scale
-                        sc = torch.where(ok[sl], sc, torch.tensor(-1e30))
-                        sc = torch.where(sl >= end, torch.tensor(-math.inf),
-                                         sc)
-                        m_new = torch.maximum(m, sc.amax(-1))
-                        alpha = torch.exp(m - m_new)
-                        pr = torch.exp(sc - m_new[:, None])
-                        l = l * alpha + pr.sum(-1)
-                        acc = (acc * alpha[:, None]
-                               + pr.to(q.dtype).float() @ vals[sl])
-                        m = m_new
-                    states.append((m, l, acc))
-                parts.append(_merge(states))
-                masked += int(bool((parts[-1][0] <= -1e30).all()))
+                end = min(min(t0 + per, n_t) * T, live)
+                m = torch.full((g,), -1e30)
+                l = torch.zeros(g)
+                acc = torch.zeros((g, hd))
+                for s0 in range(t0 * T, end, tile):
+                    sl = slots[s0:s0 + tile]
+                    sc = (qf @ keys[sl].T) * scale
+                    sc = torch.where(ok[sl], sc, torch.tensor(-1e30))
+                    sc = torch.where(sl >= end, torch.tensor(-math.inf), sc)
+                    m_new = torch.maximum(m, sc.amax(-1))
+                    alpha = torch.exp(m - m_new)
+                    pr = torch.exp(sc - m_new[:, None])
+                    l = l * alpha + pr.sum(-1)
+                    acc = (acc * alpha[:, None]
+                           + pr.to(q.dtype).float() @ vals[sl])
+                    m = m_new
+                parts.append((m, l, acc))
+                masked += int(bool((m <= -1e30).all()))
             _, l_sum, a_sum = _merge(parts)
             o = a_sum / torch.clamp(l_sum, min=1e-30)[:, None]
             out[bi, 0, k * g:(k + 1) * g] = o.to(q.dtype)
@@ -656,10 +652,25 @@ PAGED_CASES = {
                                     (1,), None),
     "ring G7 wrapped rows": (3, 2, 7, 16, 8, (200, 15, 300), 128, (),
                              None),
-    "ring with masked splits": (3, 2, 4, 64, 2, (5, 70, 400), 128, (),
+    # 128-slot pages: a row at pos 5 has two live key tiles, the second
+    # (a split of its own) all masked
+    "ring with masked splits": (3, 2, 4, 128, 2, (5, 70, 400), 256, (),
                                 None),
-    # one split of 8 tiles: each of the 4 warps' states runs over 2 tiles
+    # one split of 2 key tiles: one running state over both
     "full table G7, one split": (2, 2, 7, 16, 8, (127, 127), None, (), 1),
+    "G16": (2, 1, 16, 16, 8, (5, 127), None, (), None),
+    "8-slot pages": (3, 2, 4, 8, 16, (0, 77, 127), None, (), None),
+    # 5-slot pages: no whole swizzle atom, the kernel's cp.async route
+    "5-slot pages": (3, 2, 4, 5, 30, (4, 77, 149), None, (), None),
+    "5-slot pages ring": (3, 2, 4, 5, 30, (4, 170, 333), 150, (), None),
+    "shares ending mid-tile": (2, 2, 4, 16, 16, (100, 200), None, (),
+                               None),
+    # 8 splits of one key tile: a row at pos 3 leaves 3 of its 4 live
+    # splits masked, a row at pos 300 3 of its 8
+    "8 splits with masked splits": (2, 1, 4, 256, 2, (3, 300), None, (),
+                                    None),
+    "pos on a key tile's last slot": (3, 2, 4, 16, 16, (63, 127, 255),
+                                      None, (), None),
 }
 
 
@@ -709,10 +720,10 @@ def test_split_paged_decode_matches_jax_pallas_and_the_plain_version(
     case = PAGED_CASES[name]
     window, splits = case[6], case[8]
     q, kp, vp, table, pos = _paged_inputs(case, dtype, seed=len(name))
-    lanes = WARPS if dtype == torch.bfloat16 else 1
+    tile = pa.KEY_TILE if dtype == torch.bfloat16 else pa.F32_TILE
     got, masked = split_paged(q, kp, vp, table, pos, window=window,
-                              lanes=lanes, splits=splits)
-    if name == "ring with masked splits":
+                              tile=tile, splits=splits)
+    if "masked splits" in name:
         assert masked > 0                 # their weight exp(-1e30 - M) = 0
     assert torch.isfinite(got.float()).all()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
@@ -725,12 +736,14 @@ def test_split_paged_decode_matches_jax_pallas_and_the_plain_version(
 
 
 @pytest.mark.parametrize("b,kh,n_pages,page,want", [
-    (8, 4, 64, 16, 8),       # qwen2-7b serving: 8 x 4 x 8 = 256 blocks
-    (3, 2, 8, 16, 8),        # one 16-slot tile a split
-    (3, 2, 2, 64, 8),
+    (8, 4, 64, 16, 4),       # qwen2-7b serving: 8 x 4 x 4 = 128 blocks
+    (3, 2, 8, 16, 2),        # one 64-slot tile a split
+    (3, 2, 2, 64, 2),
     (64, 8, 4, 16, 1),       # B * K alone fills the card
-    (1, 1, 64, 16, 32),      # at most MAX_SPLITS, 2 tiles each
-    (1, 1, 4, 5, 2)])        # 20 slots: two tiles, the second ragged
+    (1, 1, 64, 16, 8),       # at most MAX_SPLITS (a cluster), 2 tiles each
+    (1, 1, 64, 64, 8),       # 8 tiles each
+    (2, 1, 2, 256, 8),       # one tile each
+    (1, 1, 4, 5, 1)])        # 20 slots: one ragged tile
 def test_paged_splits_fill_the_card_from_the_shapes(b, kh, n_pages, page,
                                                     want):
     s = pa.paged_splits(b, kh, n_pages, page)
@@ -745,6 +758,10 @@ def test_paged_shared_memory_fits_a_block(hd):
     for dtype in pa.DTYPES:
         assert 0 < pa.smem_bytes(dtype, hd) <= pa._SMEM_LIMIT
         assert pa.smem_bytes(dtype, hd) % 16 == 0
+    # bf16: two blocks an SM, a ring of at least two key tiles (a split's
+    # 128 slots at a full table at the serving shapes)
+    assert pa.smem_bytes(torch.bfloat16, hd) <= pa.BLOCK_BUDGET
+    assert 2 <= pa.bf16_stages(hd) <= pa.MAX_STAGES
 
 
 # ---------------------------------------------------------------------------
