@@ -1,0 +1,3 @@
+"""Share of the profiled rounds (%) in which no operation ran on the
+device: 1 - busy / window from the device trace."""
+from harness.readers import idle_share as read  # noqa: F401
