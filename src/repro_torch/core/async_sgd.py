@@ -21,6 +21,12 @@ applies that closed form in ONE pass over the parameters
 (``kernels/fused_update``); ``strategy="scan"`` keeps the literal O(g)
 sequential application as the semantic reference. Both reduce exactly to
 synchronous data-parallel SGD at g=1.
+
+Spans (``obs.spans``, free when no tracer is installed): ``round.grad``
+(``group``) around one group's forward and backward and ``round.stack``
+around the copy of its gradients into the stacks, in
+``stacked_group_grads``; ``round.update`` (``g``, ``leaves``, ``impl``)
+around the update in ``apply_grouped_update``.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ import torch
 
 from repro_torch.core import tree as T
 from repro_torch.kernels.fused_update.ops import fused_group_update
+from repro_torch.obs import spans
 from repro_torch.optim.closed_form import (_weight_scales, grouped_coeffs,
                                            head_coeffs)
 
@@ -150,25 +157,31 @@ def apply_grouped_update(params, grads, mom_buf, *, strategy: str, lr: float,
     ``make_grouped_train_step`` and the engine. Returns
     ``(params, mom_buf)``. ``coeffs`` / ``hcoeffs`` may be precomputed by
     the caller for the fused path."""
-    if strategy == "scan":
-        return scan_grouped_update(
-            params, grads, mom_buf, lr=lr, momentum=momentum,
-            weight_decay=weight_decay, head_mask=head_mask,
-            group_weights=group_weights)
-    if strategy != "fused":
+    if strategy not in ("fused", "scan"):
         raise ValueError(f"unknown strategy {strategy!r}")
-    g = T.leaves(grads)[0].shape[0]
-    if coeffs is None:
-        coeffs = grouped_coeffs(g, lr=lr, momentum=momentum,
-                                weight_decay=weight_decay,
-                                group_weights=group_weights)
-    if hcoeffs is None:
-        hcoeffs = head_coeffs(g, lr=lr, momentum=momentum,
-                              weight_decay=weight_decay,
-                              group_weights=group_weights)
-    return fused_group_update(params, grads, mom_buf, coeffs=coeffs,
-                              head_coeffs=hcoeffs, head_mask=head_mask,
-                              impl=update_impl)
+    attrs = {}
+    if spans.current().enabled:
+        leaves = T.leaves(grads)
+        attrs = dict(g=int(leaves[0].shape[0]), leaves=len(leaves),
+                     impl=update_impl if strategy == "fused" else "scan")
+    with spans.span("round.update", **attrs):
+        if strategy == "scan":
+            return scan_grouped_update(
+                params, grads, mom_buf, lr=lr, momentum=momentum,
+                weight_decay=weight_decay, head_mask=head_mask,
+                group_weights=group_weights)
+        g = T.leaves(grads)[0].shape[0]
+        if coeffs is None:
+            coeffs = grouped_coeffs(g, lr=lr, momentum=momentum,
+                                    weight_decay=weight_decay,
+                                    group_weights=group_weights)
+        if hcoeffs is None:
+            hcoeffs = head_coeffs(g, lr=lr, momentum=momentum,
+                                  weight_decay=weight_decay,
+                                  group_weights=group_weights)
+        return fused_group_update(params, grads, mom_buf, coeffs=coeffs,
+                                  head_coeffs=hcoeffs, head_mask=head_mask,
+                                  impl=update_impl)
 
 
 def value_and_grad(loss_fn: Callable, params, batch, hooks=None):
@@ -223,14 +236,16 @@ def stacked_group_grads(grad_fn: Callable, params, batches, g: int):
     copies exist at the peak, not the 2g of stacking kept lists."""
     losses, stacks = [], None
     for i in range(g):
-        loss, gr = grad_fn(params, T.tree_map(lambda x: x[i], batches))
+        with spans.span("round.grad", group=i):
+            loss, gr = grad_fn(params, T.tree_map(lambda x: x[i], batches))
         losses.append(loss)
-        if stacks is None:
-            stacks = [torch.empty((g,) + tuple(x.shape), dtype=x.dtype,
-                                  device=x.device) for x in gr]
-        for j in range(len(gr)):
-            stacks[j][i].copy_(gr[j])
-            gr[j] = None
+        with spans.span("round.stack"):
+            if stacks is None:
+                stacks = [torch.empty((g,) + tuple(x.shape), dtype=x.dtype,
+                                      device=x.device) for x in gr]
+            for j in range(len(gr)):
+                stacks[j][i].copy_(gr[j])
+                gr[j] = None
     return losses, stacks
 
 

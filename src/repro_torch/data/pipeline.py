@@ -131,19 +131,13 @@ def prefetch(it: Iterator[dict], depth: int = 2, tracer=None, metrics=None,
     if tracer is None:
         tracer = spans.current()
     h2d = metrics.series("h2d_s") if metrics is not None else None
-    timed = h2d is not None or tracer.enabled
     buf = collections.deque()
     for i, batch in enumerate(it):
-        with tracer.span("data.h2d", index=i) as sp:
-            if timed:
-                t0 = time.perf_counter()
-                dev = _to_device(batch, device)
-                dt = time.perf_counter() - t0
-                sp.set(dispatch_s=dt)
-                if h2d is not None:
-                    h2d.append(dt, step=i)
-            else:
-                dev = _to_device(batch, device)
+        with tracer.span("data.h2d", index=i):
+            t0 = time.perf_counter()
+            dev = _to_device(batch, device)
+            if h2d is not None:
+                h2d.append(time.perf_counter() - t0, step=i)
         buf.append(dev)
         if len(buf) > depth:
             yield buf.popleft()

@@ -16,8 +16,9 @@ with their image / encoder K/V caches left at zero.
 - ``--mode continuous``: a Poisson request trace (``--rate``/``--requests``,
   or ``--arrival-trace`` to replay a saved ``EventTrace``) served by the
   ``ContinuousServer`` — slot-recycled paged KV cache, bucketed prefill —
-  reported as tok/s + p50/p99 latency + goodput at ``--slo-ms``, with the
-  static baseline on the same trace for comparison.
+  reported as tok/s + p50/p99 latency + p50/p90 time to first token +
+  goodput at ``--slo-ms``, with the static baseline on the same trace for
+  comparison.
 
   python -m repro_torch.launch.serve --arch qwen2-7b --mode continuous
   python -m repro_torch.launch.serve --arch mamba2-2.7b
@@ -106,10 +107,12 @@ def _run_continuous(cfg, args, registry: MetricRegistry, device):
     base = static_serve_trace(cfg, reqs, batch=args.batch, params=params,
                               device=device)
     slo = args.slo_ms / 1e3
+    ttft = np.percentile(rep.ttfts, [50, 90]) * 1e3
     print(f"arch={cfg.name} continuous: {len(rep.rids)} reqs "
           f"{rep.total_tokens} tok in {rep.makespan:.2f}s "
           f"({rep.throughput:.0f} tok/s) p50={rep.percentile(50) * 1e3:.0f}ms "
           f"p99={rep.percentile(99) * 1e3:.0f}ms "
+          f"ttft p50={ttft[0]:.0f}ms p90={ttft[1]:.0f}ms "
           f"goodput@{args.slo_ms:.0f}ms={rep.goodput(slo):.0f} tok/s "
           f"occ={rep.occupancy_mean:.2f}/{args.batch}")
     print(f"arch={cfg.name} static    : {base.makespan:.2f}s "

@@ -1,6 +1,6 @@
-"""Nested host-side span tracing — zero-cost when disabled (a stdlib copy
-of the JAX package's ``repro/obs/spans.py``; in the port the serving
-engine's ``serve.prefill`` / ``serve.decode_step`` spans use it).
+"""Nested host-side span tracing — zero-cost when disabled (a copy of the
+JAX package's ``repro/obs/spans.py``; in the port the serving loop's
+``serve.*`` spans and the grouped round's ``round.*`` spans use it too).
 
 A *span* is a named wall-clock interval on the host timeline: the engine
 wraps each phase of a training round (data wait, dispatch, block) in one,
@@ -21,7 +21,11 @@ Two tracer implementations share one interface:
 - ``Tracer``: records ``SpanRecord``s. Nesting depth and parent linkage
   come from a per-thread stack (``threading.local``), so concurrently
   tracing threads (prefetch, probes) never corrupt each other's tree;
-  the finished-record list is guarded by a lock.
+  the finished-record list is guarded by a lock. Each span also opens a
+  ``torch.profiler.record_function`` range of its name, so a profile
+  taken while the tracer records carries the program's phases on the
+  profiler's own clock (the profiler lists such ranges as user
+  annotations). Instants open no range.
 
 Usage::
 
@@ -99,7 +103,8 @@ class NullTracer:
 
 class _Span:
     """Context manager recording one interval on the owning tracer."""
-    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth", "_parent")
+    __slots__ = ("_tracer", "name", "attrs", "_t0", "_depth", "_parent",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: dict):
         self._tracer = tracer
@@ -117,12 +122,15 @@ class _Span:
         self._depth = len(stack)
         self._parent = stack[-1] if stack else None
         stack.append(tr._reserve())
+        self._range = tr._record_function(self.name)
+        self._range.__enter__()
         self._t0 = tr._clock()
         return self
 
     def __exit__(self, *exc):
         tr = self._tracer
         t1 = tr._clock()
+        self._range.__exit__(*exc)
         index = tr._stack().pop()
         tr._commit(SpanRecord(
             name=self.name, t0=self._t0, t1=t1, depth=self._depth,
@@ -143,6 +151,8 @@ class Tracer:
         self._records: list = []
         self._next = 0
         self._local = threading.local()
+        from torch.profiler import record_function
+        self._record_function = record_function
         self.t_origin = self._clock()    # export rebase point
 
     def _stack(self) -> list:

@@ -22,6 +22,19 @@ sleeping, so queueing delays stay real while a trace benches in compute
 time. Per-request output is independent of batch composition (pinned in
 tests), so admission timing never changes tokens.
 
+Spans (``obs.spans``; free when no tracer is installed): one
+``serve.iteration`` per pass of the loop, whose self time is the loop's
+own host work; a ``serve.admit`` instant per admission (``rid``,
+``slot``, ``queue_wait_s``); ``serve.prefill`` (``lanes``, ``bucket``,
+``rows`` computed, admitted ``prompt_tokens``, ``rids``,
+``prompt_lens``); ``serve.decode_step`` (``occupancy``, ``gather``,
+``context_tokens``, ``contexts``) holding ``serve.decode.upload`` (the
+step's operand copies) and ``serve.decode.dispatch`` (the host enqueueing
+the step, opened in ``_step``), so its self time is the wait for the
+token; a ``serve.retire`` instant per finished request (``rid``,
+``tokens``, ``first_token_s``, ``last_token_s``). The ``rid`` ties a
+request's spans together; times in attributes are on the run's clock.
+
 Prefill modes:
 - ``"scan"`` (default): the paged decode step looped over prompt
   positions, bucketed by prompt length — bitwise-identical cache and first
@@ -114,12 +127,14 @@ def sample_requests(trace: EventTrace, cfg: ArchConfig, *,
 @dataclasses.dataclass
 class ServeReport:
     """Per-request accounting for one serving run (times in seconds on the
-    run's virtual clock; latency = finish - arrival)."""
+    run's virtual clock; latency = finish - arrival; ``first_tokens``: the
+    end of the prefill that produced each request's first token)."""
     mode: str
     rids: np.ndarray
     arrivals: np.ndarray
     queue_waits: np.ndarray
     latencies: np.ndarray
+    first_tokens: np.ndarray
     gen_counts: np.ndarray
     tokens: Dict[int, np.ndarray]
     makespan: float
@@ -127,6 +142,11 @@ class ServeReport:
 
     def percentile(self, q: float) -> float:
         return float(np.percentile(self.latencies, q))
+
+    @property
+    def ttfts(self) -> np.ndarray:
+        """Time to first token of each request (arrival to first token)."""
+        return self.first_tokens - self.arrivals
 
     @property
     def total_tokens(self) -> int:
@@ -235,11 +255,12 @@ class ContinuousServer:
     def _step(self, table, tokens, pos, active,
               gather_pages: Optional[int]) -> torch.Tensor:
         """One decode step over every slot; returns (S,) int32 argmax."""
-        logits, self.pages = paged_decode_step(
-            self.params, self.pages, table, tokens, pos, active, self.cfg,
-            window=self.window, attn_impl=self.attn_impl,
-            gather_pages=gather_pages)
-        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        with spans.span("serve.decode.dispatch"):
+            logits, self.pages = paged_decode_step(
+                self.params, self.pages, table, tokens, pos, active, self.cfg,
+                window=self.window, attn_impl=self.attn_impl,
+                gather_pages=gather_pages)
+            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     def _scan_prefill(self, table, prompts, plens, admit,
                       gather_pages: Optional[int]) -> torch.Tensor:
@@ -356,14 +377,14 @@ class ContinuousServer:
         S = spec.num_slots
         cap = spec.seq_capacity
         reg = self.registry
+        traced = spans.current().enabled     # lists and sums only if read
         queue_wait = reg.series("serving.queue_wait_s")
         prefill_s = reg.series("serving.prefill_s")
         decode_s = reg.series("serving.decode_s")
         step_s = reg.series("serving.decode_step_s")
         latency_s = reg.series("serving.latency_s")
+        ttft_s = reg.series("serving.ttft_s")
         occupancy = reg.series("serving.occupancy")
-        occ_gauge = reg.gauge("serving.batch_occupancy")
-        pages_gauge = reg.gauge("serving.pages_in_use")
         done_ctr = reg.counter("serving.requests_completed")
         tok_ctr = reg.counter("serving.tokens_generated")
 
@@ -398,7 +419,12 @@ class ContinuousServer:
             finished[r.rid] = {
                 "arrival": r.arrival, "latency": lat,
                 "queue_wait": finished[r.rid]["queue_wait"],
+                "first_token": slot_pf_end[s],
                 "gen": len(out_tokens[r.rid])}
+            spans.instant("serve.retire", rid=r.rid,
+                          tokens=len(out_tokens[r.rid]),
+                          first_token_s=float(slot_pf_end[s]),
+                          last_token_s=tnow)
             latency_s.append(lat, step=r.rid)
             decode_s.append(tnow - slot_pf_end[s], step=r.rid)
             done_ctr.inc()
@@ -407,102 +433,119 @@ class ContinuousServer:
             n_active -= 1
 
         while qi < len(reqs) or n_active:
-            tnow = now()
-            if (n_active == 0 and qi < len(reqs)
-                    and reqs[qi].arrival > tnow):
-                voff += reqs[qi].arrival - tnow    # idle: skip, don't sleep
+            with spans.span("serve.iteration", step=steps):
                 tnow = now()
+                if (n_active == 0 and qi < len(reqs)
+                        and reqs[qi].arrival > tnow):
+                    voff += reqs[qi].arrival - tnow  # idle: skip, don't sleep
+                    tnow = now()
 
-            # -- admission: fill free slots from the arrived queue --------
-            admits: List[int] = []
-            for s in range(S):
-                if qi >= len(reqs) or slot_req[s] is not None:
+                # -- admission: fill free slots from the arrived queue ----
+                admits: List[int] = []
+                for s in range(S):
+                    if qi >= len(reqs) or slot_req[s] is not None:
+                        continue
+                    r = reqs[qi]
+                    need = min(len(r.prompt), cap)
+                    if r.arrival > tnow or not alloc.can_fit(need):
+                        if (n_active == 0 and not admits
+                                and r.arrival <= tnow):
+                            raise RuntimeError(
+                                f"request {r.rid} cannot fit an empty pool")
+                        break
+                    alloc.ensure(s, need)
+                    slot_req[s] = r
+                    slot_pos[s] = 0
+                    slot_left[s] = r.gen
+                    out_tokens[r.rid] = []
+                    finished[r.rid] = {"queue_wait": tnow - r.arrival}
+                    queue_wait.append(tnow - r.arrival, step=r.rid)
+                    spans.instant("serve.admit", rid=r.rid, slot=s,
+                                  queue_wait_s=tnow - r.arrival)
+                    admits.append(s)
+                    qi += 1
+                    n_active += 1
+
+                # -- prefill the admitted slots (one bucketed call) -------
+                if admits:
+                    plens = np.array([len(slot_req[s].prompt) if slot_req[s]
+                                      else 0 for s in range(S)], np.int32)
+                    pmax = max(len(slot_req[s].prompt) for s in admits)
+                    Pb = _bucket(pmax, cap if self.window is None else None)
+                    prompts = np.zeros((S, Pb), np.int32)
+                    admit = np.zeros(S, bool)
+                    for s in admits:
+                        r = slot_req[s]
+                        prompts[s, :len(r.prompt)] = r.prompt[:Pb]
+                        admit[s] = True
+                    attrs = {}
+                    if traced:
+                        lens = [int(plens[s]) for s in admits]
+                        attrs = dict(rows=S * Pb, prompt_tokens=sum(lens),
+                                     rids=[slot_req[s].rid for s in admits],
+                                     prompt_lens=lens)
+                    tpf = now()
+                    with spans.span("serve.prefill", lanes=len(admits),
+                                    bucket=Pb, **attrs):
+                        toks = self._prefill(
+                            self._dev(alloc.tables), self._dev(prompts),
+                            self._dev(plens), self._dev(admit),
+                            gather_pages=self._prefill_gather(Pb))
+                        toks = toks.cpu().numpy()      # (Pb, S); sync
+                    tnow = now()
+                    for s in admits:
+                        r = slot_req[s]
+                        prefill_s.append(tnow - tpf, step=r.rid)
+                        ttft_s.append(tnow - r.arrival, step=r.rid)
+                        slot_pf_end[s] = tnow
+                        first = int(toks[len(r.prompt) - 1, s])
+                        out_tokens[r.rid].append(first)
+                        tok_ctr.inc()
+                        slot_tok[s] = first
+                        slot_pos[s] = len(r.prompt)
+                        slot_left[s] = r.gen - 1
+                        if slot_left[s] == 0:
+                            retire(s, tnow)
+
+                if n_active == 0:
                     continue
-                r = reqs[qi]
-                need = min(len(r.prompt), cap)
-                if r.arrival > tnow or not alloc.can_fit(need):
-                    if (n_active == 0 and not admits
-                            and r.arrival <= tnow):
-                        raise RuntimeError(
-                            f"request {r.rid} cannot fit an empty pool")
-                    break
-                alloc.ensure(s, need)
-                slot_req[s] = r
-                slot_pos[s] = 0
-                slot_left[s] = r.gen
-                out_tokens[r.rid] = []
-                finished[r.rid] = {"queue_wait": tnow - r.arrival}
-                queue_wait.append(tnow - r.arrival, step=r.rid)
-                admits.append(s)
-                qi += 1
-                n_active += 1
 
-            # -- prefill the admitted slots (one bucketed call) -----------
-            if admits:
-                plens = np.array([len(slot_req[s].prompt) if slot_req[s]
-                                  else 0 for s in range(S)], np.int32)
-                pmax = max(len(slot_req[s].prompt) for s in admits)
-                Pb = _bucket(pmax, cap if self.window is None else None)
-                prompts = np.zeros((S, Pb), np.int32)
-                admit = np.zeros(S, bool)
-                for s in admits:
-                    r = slot_req[s]
-                    prompts[s, :len(r.prompt)] = r.prompt[:Pb]
-                    admit[s] = True
-                tpf = now()
-                with spans.span("serve.prefill", lanes=len(admits),
-                                bucket=Pb):
-                    toks = self._prefill(
-                        self._dev(alloc.tables), self._dev(prompts),
-                        self._dev(plens), self._dev(admit),
-                        gather_pages=self._prefill_gather(Pb))
-                    toks = toks.cpu().numpy()      # (Pb, S); sync
+                # -- one continuous decode step over every live slot ------
+                active = np.array([r is not None for r in slot_req])
+                for s in np.nonzero(active)[0]:
+                    alloc.ensure(int(s), int(slot_pos[s]) + 1)
+                occ_samples.append(int(active.sum()))
+                occupancy.append(int(active.sum()), step=steps)
+                gp = self._gather_bucket(slot_pos, active)
+                attrs = {}
+                if traced:
+                    ctx = slot_pos[active].astype(np.int64) + 1
+                    attrs = dict(context_tokens=int(ctx.sum()),
+                                 contexts=ctx.tolist())
+                tstep = now()
+                with spans.span("serve.decode_step",
+                                occupancy=int(active.sum()),
+                                gather=(gp if gp is not None
+                                        else spec.pages_per_slot), **attrs):
+                    with spans.span("serve.decode.upload"):
+                        table = self._dev(alloc.tables)
+                        tokens = self._dev(slot_tok[:, None])
+                        pos = self._dev(slot_pos)
+                        act = self._dev(active)
+                    tok = self._step(table, tokens, pos, act, gp)
+                    tok = tok.cpu().numpy()            # sync
                 tnow = now()
-                for s in admits:
+                step_s.append(tnow - tstep, step=steps)
+                steps += 1
+                for s in np.nonzero(active)[0]:
                     r = slot_req[s]
-                    prefill_s.append(tnow - tpf, step=r.rid)
-                    slot_pf_end[s] = tnow
-                    first = int(toks[len(r.prompt) - 1, s])
-                    out_tokens[r.rid].append(first)
+                    out_tokens[r.rid].append(int(tok[s]))
                     tok_ctr.inc()
-                    slot_tok[s] = first
-                    slot_pos[s] = len(r.prompt)
-                    slot_left[s] = r.gen - 1
+                    slot_tok[s] = int(tok[s])
+                    slot_pos[s] += 1
+                    slot_left[s] -= 1
                     if slot_left[s] == 0:
-                        retire(s, tnow)
-
-            if n_active == 0:
-                continue
-
-            # -- one continuous decode step over every live slot ----------
-            active = np.array([r is not None for r in slot_req])
-            for s in np.nonzero(active)[0]:
-                alloc.ensure(int(s), int(slot_pos[s]) + 1)
-            occ_samples.append(int(active.sum()))
-            occupancy.append(int(active.sum()), step=steps)
-            occ_gauge.set(int(active.sum()))
-            pages_gauge.set(alloc.pages_in_use)
-            gp = self._gather_bucket(slot_pos, active)
-            tstep = now()
-            with spans.span("serve.decode_step", occupancy=int(active.sum()),
-                            gather=(gp if gp is not None
-                                    else spec.pages_per_slot)):
-                tok = self._step(self._dev(alloc.tables),
-                                 self._dev(slot_tok[:, None]),
-                                 self._dev(slot_pos), self._dev(active), gp)
-                tok = tok.cpu().numpy()            # sync
-            tnow = now()
-            step_s.append(tnow - tstep, step=steps)
-            steps += 1
-            for s in np.nonzero(active)[0]:
-                r = slot_req[s]
-                out_tokens[r.rid].append(int(tok[s]))
-                tok_ctr.inc()
-                slot_tok[s] = int(tok[s])
-                slot_pos[s] += 1
-                slot_left[s] -= 1
-                if slot_left[s] == 0:
-                    retire(int(s), tnow)
+                        retire(int(s), tnow)
 
         rids = np.array(sorted(finished), np.int64)
         occ = np.array(occ_samples) if occ_samples else np.zeros(1)
@@ -512,6 +555,8 @@ class ContinuousServer:
             arrivals=np.array([finished[r]["arrival"] for r in rids]),
             queue_waits=np.array([finished[r]["queue_wait"] for r in rids]),
             latencies=np.array([finished[r]["latency"] for r in rids]),
+            first_tokens=np.array([finished[r]["first_token"]
+                                   for r in rids]),
             gen_counts=np.array([finished[r]["gen"] for r in rids]),
             tokens={r: np.array(out_tokens[r], np.int32) for r in rids},
             makespan=now(),
@@ -576,7 +621,8 @@ def static_serve_trace(cfg: ArchConfig, requests: Sequence[Request], *,
                                   torch.tensor(prompts, device=dev), cfg,
                                   window)
         synchronize()
-        prefill_s.append(now() - tpf)
+        t_first = now()
+        prefill_s.append(t_first - tpf)
         tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None].to(torch.int32)
         outs = [tok.cpu().numpy()[:, 0]]
         for t in range(pmax, pmax + gmax - 1):
@@ -594,6 +640,7 @@ def static_serve_trace(cfg: ArchConfig, requests: Sequence[Request], *,
             finished[r.rid] = {"arrival": r.arrival,
                                "queue_wait": start - r.arrival,
                                "latency": end - r.arrival,
+                               "first_token": t_first,
                                "gen": r.gen}
             latency_s.append(end - r.arrival, step=r.rid)
             tokens[r.rid] = allt[i, :r.gen].astype(np.int32)
@@ -606,6 +653,7 @@ def static_serve_trace(cfg: ArchConfig, requests: Sequence[Request], *,
         arrivals=np.array([finished[r]["arrival"] for r in rids]),
         queue_waits=np.array([finished[r]["queue_wait"] for r in rids]),
         latencies=np.array([finished[r]["latency"] for r in rids]),
+        first_tokens=np.array([finished[r]["first_token"] for r in rids]),
         gen_counts=np.array([finished[r]["gen"] for r in rids]),
         tokens=tokens,
         makespan=makespan,

@@ -10,8 +10,9 @@ the run stamp's comparability rule (``obs.meta.STRICT_KEYS``,
 - ``env_mismatches`` and ``TimeStats.row`` give the JAX answers on the same
   inputs (``tests/test_obs.py``'s stamp test, mirrored);
 - the launcher's Chrome trace of smoke lenet has the JAX launcher's span
-  names (the autotune spans, which only the card's kernel arm emits,
-  apart) and, on ``--replay-trace``, its commit events. The JAX launcher
+  names (the autotune spans, which only the card's kernel arm emits, and
+  the grouped round's ``round.*`` spans, which only the port has, apart)
+  and, on ``--replay-trace``, its commit events. The JAX launcher
   runs ``--exec-mode vmap``: the test session forces 8 host devices, under
   which its "auto" goes SPMD (ROADMAP Queue C).
 """
@@ -137,6 +138,9 @@ def _trace(path):
     return names, len(commits)
 
 
+ROUND_SPANS = ("round.grad", "round.stack", "round.update")
+
+
 @pytest.mark.parametrize("replay", [False, True])
 def test_trace_out_has_the_jax_launchers_spans(tmp_path, replay):
     from repro.launch import train as JTR
@@ -156,7 +160,8 @@ def test_trace_out_has_the_jax_launchers_spans(tmp_path, replay):
     names, commits = _trace(path)
     want_names, want_commits = _trace(jpath)
     spans = ["engine.replay"] if replay else ["engine.run", "engine.step"]
-    assert names == want_names and set(spans) <= names
+    # the port's grouped round has spans of its own inside engine.dispatch
+    assert names - set(ROUND_SPANS) == want_names and set(spans) <= names
     assert commits == want_commits == (4 if replay else 0)
     assert validate.check_trace(path, spans) == []
     assert validate.check_metrics(tmp_path / "m.jsonl", ["step_s"]) == []
