@@ -53,8 +53,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.transformer import require_ported, unstack
 
-__all__ = ["ATTN_IMPLS", "PAGED_FAMILIES", "check_paged_family",
-           "paged_attention_decode", "paged_decode_step"]
+__all__ = ["ATTN_IMPLS", "PAGED_FAMILIES", "DecodeGraph",
+           "check_paged_family", "paged_attention_decode",
+           "paged_decode_step"]
 
 #: the arch families whose decode state is a KV cache that pages
 PAGED_FAMILIES = ("dense", "moe")
@@ -166,3 +167,45 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, pages
+
+
+class DecodeGraph:
+    """A decode step recorded once as a CUDA graph and replayed a step at a
+    time.
+
+    ``step(*operands) -> (logits, tokens)`` must hold no host read and
+    keep its shapes, as ``paged_decode_step`` does at ``attn_impl="cuda"``
+    (S slots, one token, the full table, the page walk in-kernel).
+    ``operands`` are the graph's static inputs, all-inactive when handed
+    in: ``step`` runs on them once eagerly on ``stream`` (an all-inactive
+    step writes back exactly what it reads), which readies that stream's
+    library handles, and is then captured on ``stream``, which executes
+    nothing. The graph holds the addresses of whatever ``step`` reads and
+    writes: a new page pool needs a new graph.
+
+    ``replay`` copies a step's operands into the static ones (device
+    copies, no host sync) and replays the graph on the current stream;
+    ``logits`` and ``tokens`` are then that step's outputs, overwritten by
+    the next replay. Each replay adds the B6 launches the capture recorded
+    to ``paged_attention.launches``, which counts kernel runs.
+    """
+
+    def __init__(self, step, operands, stream: torch.cuda.Stream):
+        self.operands = operands
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            step(*operands)
+        current.wait_stream(stream)
+        before = pa_ops.paged_attention.launches
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.logits, self.tokens = step(*operands)
+        self.launches = pa_ops.paged_attention.launches - before
+        pa_ops.paged_attention.launches = before
+
+    def replay(self, *operands) -> None:
+        for static, x in zip(self.operands, operands, strict=True):
+            static.copy_(x)
+        self.graph.replay()
+        pa_ops.paged_attention.launches += self.launches

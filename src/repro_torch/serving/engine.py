@@ -9,7 +9,14 @@ completes, returning their pages to the pool. Slot membership is data
 compiles one step per gather width and prefill bucket; the port runs
 eagerly, so ``warmup`` builds the kernels and primes the allocator and
 the math libraries instead, and pool updates happen in place where JAX
-donates the pool.
+donates the pool. On the card at ``attn_impl="cuda"`` the decode step's
+shapes never change (S slots, one token, the full table walked
+in-kernel), so ``warmup`` also records one step and its argmax as a CUDA
+graph (``decode.DecodeGraph``) and every decode step after copies its
+operands in and replays it: one launch where the eager step enqueues
+every layer's kernels one by one. The gather arms (their width follows
+the bucket ladder) and the CPU run the eager step; the graph is a
+recording of it, not a second definition.
 
 Arrivals are an ``exec.trace.EventTrace``: ``commit_time`` carries
 arrival times and ``read_version[t] = t``. ``poisson_trace`` draws
@@ -30,8 +37,9 @@ own host work; a ``serve.admit`` instant per admission (``rid``,
 ``prompt_lens``); ``serve.decode_step`` (``occupancy``, ``gather``,
 ``context_tokens``, ``contexts``) holding ``serve.decode.upload`` (the
 step's operand copies) and ``serve.decode.dispatch`` (the host enqueueing
-the step, opened in ``_step``), so its self time is the wait for the
-token; a ``serve.retire`` instant per finished request (``rid``,
+the step, opened in ``_step``; ``graph`` says whether it replayed the
+captured step), so its self time is the wait for the token; a
+``serve.retire`` instant per finished request (``rid``,
 ``tokens``, ``first_token_s``, ``last_token_s``). The ``rid`` ties a
 request's spans together; times in attributes are on the run's clock.
 
@@ -72,7 +80,8 @@ from repro_torch.models import transformer as T
 from repro_torch.models.convert import to_compute_dtype
 from repro_torch.obs import spans
 from repro_torch.obs.metrics import MetricRegistry
-from repro_torch.serving.decode import check_paged_family, paged_decode_step
+from repro_torch.serving.decode import (DecodeGraph, check_paged_family,
+                                        paged_decode_step)
 from repro_torch.serving.paged_cache import (PagedCacheSpec, PageAllocator,
                                              init_pages)
 
@@ -192,6 +201,10 @@ class ContinuousServer:
     ``device`` and cast to the compute dtype once; ``None`` draws seeded
     random ones there. ``device`` defaults to the card and raises without
     one; the CPU runs only ``attn_impl="torch"``.
+
+    Counters in ``registry``: ``serving.decode_graph_captures`` (graphs
+    recorded) and ``serving.decode_graph_replays`` (decode steps, scan
+    prefill positions included, that replayed one).
     """
 
     def __init__(self, cfg: ArchConfig, params=None, *, slots: int = 8,
@@ -227,6 +240,11 @@ class ContinuousServer:
         self.alloc = PageAllocator(self.spec)
         self.pages = init_pages(self.spec, self.device)
         self.registry = registry if registry is not None else MetricRegistry()
+        # the decode step as one CUDA graph: on the card at the in-kernel
+        # page walk, whose shapes never change (module docstring)
+        self._graphed = self.device.type == "cuda" and attn_impl == "cuda"
+        self._graph: Optional[DecodeGraph] = None
+        self._capture_stream: Optional[torch.cuda.Stream] = None
 
         # the one remaining impl fallback, made loud: flash-over-a-copy
         # cannot express a wrapped ring, so sliding windows run the plain
@@ -252,15 +270,44 @@ class ContinuousServer:
 
     # -- the two compiled-step counterparts --------------------------------
 
+    def _decode(self, table, tokens, pos, active,
+                gather_pages: Optional[int] = None):
+        """The eager decode step: (S, 1, V) fp32 logits and their (S,)
+        int32 argmax."""
+        logits, self.pages = paged_decode_step(
+            self.params, self.pages, table, tokens, pos, active, self.cfg,
+            window=self.window, attn_impl=self.attn_impl,
+            gather_pages=gather_pages)
+        return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+
+    def _capture(self) -> None:
+        """Record the decode step over all-inactive static operands."""
+        S, dev = self.spec.num_slots, self.device
+        operands = (
+            torch.zeros((S, self.spec.pages_per_slot), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((S, 1), dtype=torch.int32, device=dev),
+            torch.zeros((S,), dtype=torch.int32, device=dev),
+            torch.zeros((S,), dtype=torch.bool, device=dev))
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        self._graph = DecodeGraph(self._decode, operands,
+                                  self._capture_stream)
+        self.registry.counter("serving.decode_graph_captures").inc()
+
     def _step(self, table, tokens, pos, active,
               gather_pages: Optional[int]) -> torch.Tensor:
-        """One decode step over every slot; returns (S,) int32 argmax."""
-        with spans.span("serve.decode.dispatch"):
-            logits, self.pages = paged_decode_step(
-                self.params, self.pages, table, tokens, pos, active, self.cfg,
-                window=self.window, attn_impl=self.attn_impl,
-                gather_pages=gather_pages)
-            return torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        """One decode step over every slot; returns (S,) int32 argmax, a
+        fresh tensor (the scan prefill stacks several)."""
+        with spans.span("serve.decode.dispatch", graph=self._graphed):
+            if not self._graphed:
+                return self._decode(table, tokens, pos, active,
+                                    gather_pages)[1]
+            if self._graph is None:
+                self._capture()
+            self._graph.replay(table, tokens, pos, active)
+            self.registry.counter("serving.decode_graph_replays").inc()
+            return self._graph.tokens.clone()
 
     def _scan_prefill(self, table, prompts, plens, admit,
                       gather_pages: Optional[int]) -> torch.Tensor:
@@ -302,9 +349,12 @@ class ContinuousServer:
 
     def reset(self, registry: Optional[MetricRegistry] = None) -> None:
         """Fresh pool/allocator (and optionally a fresh metric registry),
-        so a measured run can follow a warmup run."""
+        so a measured run can follow a warmup run. The decode graph wrote
+        the old pool: it goes, and the next warmup or step records one
+        over the new pool."""
         self.alloc = PageAllocator(self.spec)
         self.pages = init_pages(self.spec, self.device)
+        self._graph = None
         if registry is not None:
             self.registry = registry
             if self._fallback_note is not None:
@@ -355,15 +405,21 @@ class ContinuousServer:
         """Run the decode step at every gather width and the prefill at
         every bucket of the given prompt lengths without touching any
         state (an all-inactive call writes back exactly what it reads):
-        builds the kernels and primes the allocator and math libraries."""
+        builds the kernels and primes the allocator and math libraries.
+        Where the step is graphed, records its graph instead (after one
+        such eager step: ``DecodeGraph``)."""
         S = self.spec.num_slots
         table = self._dev(self.alloc.tables)
         off = torch.zeros((S,), dtype=torch.int32, device=self.device)
         inact = torch.zeros((S,), dtype=torch.bool, device=self.device)
-        for gp in self._gather_ladder():
-            self._step(table, torch.zeros((S, 1), dtype=torch.int32,
-                                          device=self.device),
-                       off, inact, gp).cpu()
+        if self._graphed:
+            if self._graph is None:
+                self._capture()
+        else:
+            for gp in self._gather_ladder():
+                self._step(table, torch.zeros((S, 1), dtype=torch.int32,
+                                              device=self.device),
+                           off, inact, gp).cpu()
         cap = self.spec.seq_capacity if self.window is None else None
         for p in sorted({_bucket(int(p), cap) for p in prompt_lens}):
             self._prefill(table, torch.zeros((S, p), dtype=torch.int32,

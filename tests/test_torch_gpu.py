@@ -11,7 +11,14 @@ card's check). This file imports no JAX, so it runs on the card's machine:
 Tolerances: bf16 ``atol = rtol = 2e-2`` and fp32 ``1e-5`` against the plain
 versions (summation order, and in bf16 where the plain version rounds);
 served tokens equal between ``attn_impl="cuda"`` and ``"torch"`` in fp32;
-the flash arm raises when asked for gradients.
+the flash arm raises when asked for gradients. The decode step's CUDA
+graph (``attn_impl="cuda"``, dense and MoE, fp32 and bf16): every replay's
+logits and tokens bitwise the eager step's over the same operands and
+pool, through admissions, page crossings, retirements and re-admissions;
+one capture at warmup and a replay a decode step; the same tokens after
+``reset`` and a second capture; a scan prefill's stacked tokens the
+eager ones; ``paged_attention.launches`` up by the layers a replay; the
+gather arms on the card eager, their spans ``graph=False``.
 The fused update is bitwise its plain version (same fp32 order, no FMA
 contraction), with a plan's unequal group weights too; the conv kernels sum over K or M in another order than
 cuBLAS (all three in 3xTF32 on tensor cores): max abs error
@@ -368,6 +375,156 @@ def test_cuda_gather_ring_fallback_warns_and_notes(card):
         srv2 = ContinuousServer(_cfg(), slots=2, page_size=16, max_seq=64,
                                 attn_impl="cuda_gather", device=card)
     assert srv2.registry.notes == []
+
+
+# ---------------------------------------------------------------------------
+# the decode step as one CUDA graph (attn_impl="cuda")
+# ---------------------------------------------------------------------------
+
+def _graph_cfg(family, dtype):
+    cfg = _cfg() if family == "dense" else _moe_cfg()
+    return dataclasses.replace(cfg, compute_dtype=dtype)
+
+
+def _graph_reqs(cfg, n=7):
+    """More requests than slots, all arriving at once: admissions, slots
+    growing across 8-slot pages, retirements and re-admissions."""
+    reqs = sample_requests(poisson_trace(1e6, n, seed=5), cfg,
+                           prompt_range=(3, 14), gen_range=(6, 20), seed=5)
+    return [dataclasses.replace(r, arrival=0.0) for r in reqs]
+
+
+def _against_eager(srv):
+    """Wrap a graphed server's ``_step`` (an instance attribute): after
+    each replay, the eager step and its argmax over the same operands and
+    the same pool (an active row rewrites the K and V the replay wrote)
+    must give the replay's logits and tokens, bit for bit. Returns the
+    occupancy of every step checked."""
+    graphed, seen = srv._step, []
+
+    def step(table, tokens, pos, active, gather_pages):
+        got = graphed(table, tokens, pos, active, gather_pages)
+        logits = srv._graph.logits.clone()
+        want_logits, want = srv._decode(table, tokens, pos, active)
+        assert torch.equal(logits, want_logits), len(seen)
+        assert torch.equal(got, want), len(seen)
+        seen.append(int(active.sum()))
+        return got
+
+    srv._step = step
+    return seen
+
+
+@pytest.mark.parametrize("family", ["dense", "moe"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_graph_replays_the_eager_step(card, family, dtype):
+    from repro_torch.obs import spans
+    from repro_torch.obs.metrics import MetricRegistry
+    cfg = _graph_cfg(family, dtype)
+    reqs = _graph_reqs(cfg)
+    reg = MetricRegistry()
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl="cuda", prefill_mode="parallel",
+                           registry=reg, device=card)
+    srv.warmup(sorted({len(r.prompt) for r in reqs}))
+    assert reg.counter("serving.decode_graph_captures").value == 1
+    seen = _against_eager(srv)
+    tracer = spans.Tracer()
+    with spans.install(tracer):
+        rep = srv.run(reqs)
+    assert len(rep.rids) == len(reqs)
+    dispatch = [r for r in tracer.records()
+                if r.name == "serve.decode.dispatch"]
+    assert len(dispatch) == len(seen)
+    assert all(r.attrs["graph"] is True for r in dispatch)
+    steps = len(reg.series("serving.decode_step_s").values)
+    assert steps == len(seen) > 0 and min(seen) < 3 == max(seen)
+    assert reg.counter("serving.decode_graph_replays").value == steps
+    assert reg.counter("serving.decode_graph_captures").value == 1
+
+
+def test_decode_graph_recaptures_after_reset(card):
+    cfg = _graph_cfg("dense", "bfloat16")
+    reqs = _graph_reqs(cfg)
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl="cuda", prefill_mode="parallel",
+                           device=card)
+    srv.warmup(sorted({len(r.prompt) for r in reqs}))
+    first = srv.run(reqs).tokens
+    graph = srv._graph
+    srv.reset()
+    assert srv._graph is None
+    again = srv.run(reqs).tokens
+    assert srv._graph is not graph
+    assert srv.registry.counter("serving.decode_graph_captures").value == 2
+    for rid in first:
+        assert np.array_equal(first[rid], again[rid]), rid
+
+
+def test_scan_prefill_through_the_graph_gives_the_eager_tokens(card):
+    """The scan prefill stacks one ``_step`` result a prompt position: each
+    must be its own tensor, not the graph's output buffer."""
+    cfg = _graph_cfg("dense", "bfloat16")
+    kw = dict(slots=3, page_size=8, max_seq=64, attn_impl="cuda",
+              device=card)
+    srv = ContinuousServer(cfg, **kw)
+    twin = ContinuousServer(cfg, srv.params, **kw)
+    S, Pb = 3, 16
+    rng = np.random.default_rng(7)
+    for s in range(S):
+        srv.alloc.ensure(s, Pb)
+        twin.alloc.ensure(s, Pb)
+    table = torch.tensor(srv.alloc.tables, device=card)
+    prompts = torch.tensor(rng.integers(cfg.vocab_size, size=(S, Pb)),
+                           dtype=torch.int32, device=card)
+    plens = torch.tensor([16, 5, 11], dtype=torch.int32, device=card)
+    admit = torch.tensor([True, True, False], device=card)
+    got = srv._scan_prefill(table, prompts, plens, admit, None)
+    assert srv.registry.counter("serving.decode_graph_replays").value == Pb
+    want = []
+    for t in range(Pb):
+        pos = torch.full((S,), t, dtype=torch.int32, device=card)
+        want.append(twin._decode(table, prompts[:, t:t + 1], pos,
+                                 admit & (t < plens))[1])
+    assert torch.equal(got, torch.stack(want))
+    assert len({tuple(row.tolist()) for row in got}) > 1
+
+
+def test_decode_graph_replay_counts_its_paged_launches(card):
+    cfg = _graph_cfg("moe", "bfloat16")
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl="cuda", device=card)
+    srv.warmup()
+    S = srv.spec.num_slots
+    ops = (torch.tensor(srv.alloc.tables, device=card),
+           torch.zeros((S, 1), dtype=torch.int32, device=card),
+           torch.zeros((S,), dtype=torch.int32, device=card),
+           torch.zeros((S,), dtype=torch.bool, device=card))
+    assert srv._graph.launches == cfg.num_layers
+    for n in (1, 2):
+        before = pa_ops.paged_attention.launches
+        for _ in range(n):
+            srv._step(*ops, None)
+        assert pa_ops.paged_attention.launches == before + n * cfg.num_layers
+
+
+@pytest.mark.parametrize("attn_impl", ["torch", "cuda_gather"])
+def test_gather_arms_on_the_card_run_the_eager_step(card, attn_impl):
+    from repro_torch.obs import spans
+    cfg = _graph_cfg("dense", "bfloat16")
+    reqs = _graph_reqs(cfg, n=4)
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl=attn_impl, device=card)
+    tracer = spans.Tracer()
+    with spans.install(tracer):
+        srv.warmup(sorted({len(r.prompt) for r in reqs}))
+        srv.run(reqs)
+    dispatch = [r for r in tracer.records()
+                if r.name == "serve.decode.dispatch"]
+    assert dispatch and all(r.attrs["graph"] is False for r in dispatch)
+    assert srv._graph is None
+    assert srv.registry.counter("serving.decode_graph_replays").value == 0
+    assert srv.registry.counter("serving.decode_graph_captures").value == 0
 
 
 def test_flash_arm_refuses_gradients_and_serves_under_no_grad(card):

@@ -2,7 +2,8 @@
 (``obs.spans``), on the CPU:
 
 - a served run under a ``Tracer``: one ``serve.decode.upload`` and one
-  ``serve.decode.dispatch`` child per ``serve.decode_step``; per admitted
+  ``serve.decode.dispatch`` child per ``serve.decode_step``, each the
+  eager step (``graph=False``, the graph counters at 0); per admitted
   rid exactly one ``serve.admit``, one ``serve.prefill`` whose ``rids``
   hold it and one ``serve.retire``; a prefill's ``rows`` are slots x
   bucket and its ``prompt_tokens`` the sum of its ``prompt_lens``;
@@ -124,6 +125,17 @@ def test_first_tokens_match_retire_instants(served):
     got = dict(zip(ttft.steps, ttft.values))
     for rid, t in zip(rep.rids, rep.ttfts):
         assert got[int(rid)] == pytest.approx(t, abs=1e-12)
+
+
+def test_cpu_server_dispatches_the_eager_step(served):
+    """Only a server on the card at ``attn_impl="cuda"`` replays a CUDA
+    graph: on the CPU every dispatch is the eager step and the graph
+    counters stay at 0."""
+    _, _, recs, reg = served
+    dispatch = _by_name(recs)["serve.decode.dispatch"]
+    assert dispatch and all(r.attrs["graph"] is False for r in dispatch)
+    assert reg.counter("serving.decode_graph_captures").value == 0
+    assert reg.counter("serving.decode_graph_replays").value == 0
 
 
 def test_scan_prefill_dispatches_under_the_prefill():
