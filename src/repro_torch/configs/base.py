@@ -1,6 +1,8 @@
 """Architecture / run configuration, the PyTorch port's copy of the JAX
 package's ``repro/configs/base.py``: the same frozen dataclasses with the
-same fields, except that ``ArchConfig.dtype`` returns a ``torch.dtype``.
+same fields, except that ``ArchConfig.dtype`` returns a ``torch.dtype``
+and that ``ArchConfig`` has fields of its own for the port's hybrid_moe
+family (Granite 4.0-H), each defaulting to what the other families do.
 
 Every assigned architecture gets one module in ``repro_torch/configs/<id>.py``
 exporting ``CONFIG`` (the full published config) and ``smoke_config()``
@@ -49,6 +51,7 @@ class HybridConfig:
 class ArchConfig:
     name: str
     arch_type: str                # dense | moe | ssm | hybrid | encdec | vlm
+                                  # | hybrid_moe
     num_layers: int
     d_model: int
     num_heads: int
@@ -72,6 +75,23 @@ class ArchConfig:
     # vlm: cross-attention to image patch embeddings every k-th layer
     cross_attn_every: int = 0
     num_image_tokens: int = 1024  # patch embeddings from stubbed vision tower
+    # hybrid_moe (Granite 4.0-H): each layer's mixer, "mamba" or
+    # "attention", the source's list; the first num_layers are run. Every
+    # layer's FFN is a dropless MoE with a shared expert.
+    layer_types: Optional[Tuple[str, ...]] = None
+    # Granite's scalings: embeddings times embedding_multiplier, each
+    # residual branch times residual_multiplier, logits over
+    # logits_scaling, and attention_multiplier as the softmax scale (None:
+    # 1/sqrt(head_dim))
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    attention_multiplier: Optional[float] = None
+    # hybrid_moe: the shared expert's SwiGLU width (None: num_shared_experts
+    # x d_ff_expert), and the Mamba-2 output's gated norm, rms(y * silu(z))
+    # before out_proj (off: y * silu(z))
+    shared_d_ff: Optional[int] = None
+    ssm_gated_norm: bool = False
     # numerics / memory
     param_dtype: str = "float32"
     mom_dtype: str = "float32"    # momentum buffer dtype (bf16 => ZeRO-ish footprint)
@@ -85,6 +105,11 @@ class ArchConfig:
         if self.head_dim is not None:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """hybrid_moe: the mixer of each layer that runs."""
+        return tuple(self.layer_types[:self.num_layers])
 
     def dtype(self, which: str) -> torch.dtype:
         return _DTYPES[{"param": self.param_dtype,

@@ -10,7 +10,12 @@ Port of the JAX package's ``models/layers.py`` with its numerics kept:
   no-op once ``models.convert.to_compute_dtype`` has cast them at load);
 - scores are taken in the compute dtype, softmaxed in fp32 with ``-1e30``
   masking, and cast back before the value product;
-- logits are the compute-dtype product cast to fp32.
+- logits are the compute-dtype product cast to fp32;
+- Granite's scalings where the config sets them: embeddings times
+  ``embedding_multiplier``, logits over ``logits_scaling``, and q times
+  ``attention_multiplier * sqrt(hd)`` so that every attention path's
+  ``1/sqrt(hd)`` gives the configured softmax scale (NoPE is
+  ``rope_theta = 0``, where ``rope`` is the identity).
 
 Params are nested dicts of tensors with the JAX package's key names. The
 JAX sharding hooks (``constrain_batch``, ``maybe_replicate_for_decode``,
@@ -150,6 +155,10 @@ def _project_qkv(p, x, kv_src, cfg: ArchConfig):
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
         v = v + p["bv"].to(cd)
+    if cfg.attention_multiplier is not None:
+        # every attention path divides the scores by sqrt(hd) (B5 and B6
+        # take no scale): q carries the rest of the configured scale
+        q = q * (cfg.attention_multiplier * math.sqrt(q.shape[-1]))
     return q, k, v
 
 
@@ -364,9 +373,15 @@ def init_embed(cfg: ArchConfig, generator: torch.Generator, *,
 
 
 def embed(p, tokens, cfg: ArchConfig):
-    return p["tok"].to(cfg.dtype("compute"))[tokens.long()]
+    x = p["tok"].to(cfg.dtype("compute"))[tokens.long()]
+    if cfg.embedding_multiplier != 1.0:
+        x = x * cfg.embedding_multiplier
+    return x
 
 
 def unembed(p, x, cfg: ArchConfig):
     w = p["unembed"] if "unembed" in p else p["tok"].T
-    return (x @ w.to(cfg.dtype("compute"))).float()
+    logits = (x @ w.to(cfg.dtype("compute"))).float()
+    if cfg.logits_scaling != 1.0:
+        logits = logits / cfg.logits_scaling
+    return logits

@@ -13,6 +13,29 @@ Port of the JAX package's ``models/moe.py`` with its formulation kept:
 - every expert is computed densely on its ``(B, E, C, D)`` buffer, and the
   combine weights each (token, choice) by its renormalised gate.
 
+``moe_dropless`` is Granite 4.0-H's layer: top-k of the router's logits,
+the softmax over those k, every choice computed (no capacity, nothing
+dropped), plus the shared expert. Its rows are given flat, (N, D). Two
+dispatches:
+
+- grouped: the (row, choice) pairs sorted by expert, the per-expert
+  counts read to the host once, each expert's rows one GEMM, and the
+  outputs put back in pair order and summed over a row's choices in a
+  fixed order (no atomics: the same rows give the same bits). Every row
+  is routed: a caller leaves out the rows it must not route;
+- dense: every expert over every row as three batched
+  GEMMs over the experts, combined by a (N, E) weight matrix that holds
+  each row's k gates and zeros, so that a step has fixed shapes and no
+  host read (a captured CUDA graph). ``live`` (N,) zeroes the weights of
+  rows that are not routed (empty slots). ``stats`` accumulates on the
+  device: ``hits`` (E,), the live rows' choices per expert, and ``live``,
+  the experts that some live row chose, summed over calls.
+
+The dense dispatch runs up to ``DENSE_MAX_ROWS`` rows, where reading
+every expert's weights once costs less than the grouped loop's launches
+(216 GEMMs a layer at Granite's 72 experts) and a step keeps fixed
+shapes (the decode step, a captured prefill); the grouped one above.
+
 The router is fp32 (``models.convert.FP32_LEAVES``) and the router
 softmax runs in fp32. ``jax.lax.top_k`` and ``torch.topk`` break ties in
 other orders; on fp32 probabilities of seeded inputs ties do not occur,
@@ -31,6 +54,7 @@ from repro_torch.models import layers as L
 CAPACITY_FACTOR = 1.25
 MOE_CHUNK = 4096
 MAX_CAPACITY = 1024
+DENSE_MAX_ROWS = 4096
 
 
 def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
@@ -49,7 +73,7 @@ def init_moe(cfg: ArchConfig, generator: torch.Generator, *,
          "w_up": L._randn((e, d, f), generator, d ** -0.5, dt, lead, dev),
          "w_down": L._randn((e, f, d), generator, f ** -0.5, dt, lead, dev)}
     if m.num_shared_experts > 0:
-        fs = m.num_shared_experts * f
+        fs = cfg.shared_d_ff or m.num_shared_experts * f
         p["shared"] = {
             "w_gate": L._randn((d, fs), generator, d ** -0.5, dt, lead, dev),
             "w_up": L._randn((d, fs), generator, d ** -0.5, dt, lead, dev),
@@ -131,9 +155,71 @@ def moe_forward(p, x, cfg: ArchConfig, chunk: int = MOE_CHUNK):
         aux = e * torch.sum((ft / nc) * (mp / nc))
 
     if "shared" in p:
-        sp = p["shared"]
-        xt = x.reshape(b * s, d)
-        h = F.silu(xt @ sp["w_gate"].to(cd)) * (xt @ sp["w_up"].to(cd))
-        y = y + (h @ sp["w_down"].to(cd)).reshape(b, s, d)
+        y = y + _shared(p["shared"], x.reshape(b * s, d), cd).reshape(b, s, d)
 
     return y, aux * m.router_aux_weight
+
+
+def _shared(sp, xt, cd):
+    h = F.silu(xt @ sp["w_gate"].to(cd)) * (xt @ sp["w_up"].to(cd))
+    return h @ sp["w_down"].to(cd)
+
+
+def route_topk(p, xt, cfg: ArchConfig):
+    """(N, k) gates (the softmax over the k largest router logits, fp32)
+    and expert ids of rows ``xt`` (N, D)."""
+    logits = xt.float() @ p["router"].float()
+    top, idx = torch.topk(logits, cfg.moe.top_k, dim=-1)
+    return torch.softmax(top, dim=-1), idx
+
+
+def _experts_grouped(p, xt, gates, idx, cd):
+    n, k = idx.shape
+    order = torch.argsort(idx.reshape(-1), stable=True)
+    counts = torch.bincount(idx.reshape(-1), minlength=p["w_up"].shape[0])
+    xs = xt[order // k]
+    out = torch.empty_like(xs)
+    start = 0
+    for e, c in enumerate(counts.tolist()):       # the layer's one host read
+        if c:
+            seg = xs[start:start + c]
+            h = F.silu(seg @ p["w_gate"][e].to(cd)) * (seg @ p["w_up"][e].to(cd))
+            out[start:start + c] = h @ p["w_down"][e].to(cd)
+            start += c
+    pairs = torch.empty_like(out)
+    pairs[order] = out
+    w = gates.to(cd).reshape(-1, 1)
+    return (pairs * w).reshape(n, k, xt.shape[-1]).sum(dim=1)
+
+
+def _experts_dense(p, xt, gates, idx, cd, live, stats):
+    e = p["w_up"].shape[0]
+    w = torch.zeros((xt.shape[0], e), dtype=torch.float32, device=xt.device)
+    w.scatter_(1, idx, gates)
+    if live is not None:
+        w = w * live[:, None]
+    if stats is not None:
+        chosen = torch.zeros_like(w).scatter_(1, idx, 1.0)
+        if live is not None:
+            chosen = chosen * live[:, None]
+        per = chosen.sum(dim=0)
+        stats["hits"] += per.to(stats["hits"].dtype)
+        stats["live"] += (per > 0).sum().to(stats["live"].dtype)
+    h = F.silu(torch.matmul(xt, p["w_gate"].to(cd))) \
+        * torch.matmul(xt, p["w_up"].to(cd))                    # (E, N, F)
+    out = torch.matmul(h, p["w_down"].to(cd))                    # (E, N, D)
+    return torch.einsum("ne,end->nd", w.to(cd), out)
+
+
+def moe_dropless(p, xt, cfg: ArchConfig, *, live=None, stats=None):
+    """Dropless top-k MoE plus the shared expert over rows ``xt`` (N, D)
+    (module docstring). ``live`` and ``stats``: the dense dispatch only."""
+    cd = cfg.dtype("compute")
+    gates, idx = route_topk(p, xt, cfg)
+    if xt.shape[0] <= DENSE_MAX_ROWS:
+        y = _experts_dense(p, xt, gates, idx, cd, live, stats)
+    else:
+        y = _experts_grouped(p, xt, gates, idx, cd)
+    if "shared" in p:
+        y = y + _shared(p["shared"], xt, cd)
+    return y

@@ -13,6 +13,15 @@ Recurrence per head (state h in R^{P x N}):
 
 ``A_log``, ``D`` and ``dt_bias`` are fp32 and read in fp32
 (``models.convert.FP32_LEAVES``).
+
+With ``ArchConfig.ssm_gated_norm`` (Granite 4.0-H) the output is
+``rms(y * silu(z))`` scaled by ``1 + ln_out`` over all d_inner channels
+(one group) before ``out_proj``; without it, ``y * silu(z)``.
+
+``ssm_prefill`` runs a right-padded batch from a given state: ``dt`` is 0
+at padded positions, so the state passes them unchanged, and the conv
+tail is each row's last K-1 real inputs. ``ssm_decode`` with ``active``
+leaves inactive rows' state exactly as it was (decay 1, nothing added).
 """
 from __future__ import annotations
 
@@ -46,7 +55,11 @@ def init_ssm(cfg: ArchConfig, generator: torch.Generator, *,
     dev = L.init_device(generator, device)
     f32 = dict(dtype=torch.float32, device=dev)
     a_log = torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
-    return {
+    extra = {}
+    if cfg.ssm_gated_norm:
+        extra["ln_out"] = L.init_rms_norm(d_inner, cfg.dtype("param"), dev,
+                                          lead=lead)
+    return {**extra,
         "in_proj": L._randn((d, proj_out), generator, d ** -0.5, dt, lead,
                             dev),
         "conv_w": L._randn((s.conv_width, d_conv), generator, 0.1, dt, lead,
@@ -68,12 +81,26 @@ def _split_proj(p, u, cfg: ArchConfig):
                        dim=-1)
 
 
-def _causal_conv(xbc, w, b, cd):
-    """Depthwise causal conv over time. xbc: (B,S,C); w: (K,C)."""
+def _causal_conv(xbc, w, b, cd, conv0=None):
+    """Depthwise causal conv over time. xbc: (B,S,C); w: (K,C); ``conv0``
+    (B,K-1,C): the inputs before the first (default zeros). Returns the
+    activation and the padded input (B,K-1+S,C)."""
     k = w.shape[0]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    if conv0 is None:
+        pad = F.pad(xbc, (0, 0, k - 1, 0))
+    else:
+        pad = torch.cat([conv0.to(xbc.dtype), xbc], dim=1)
     out = sum(pad[:, i:i + xbc.shape[1], :] * w[i].to(cd) for i in range(k))
-    return F.silu(out + b.to(cd))
+    return F.silu(out + b.to(cd)), pad
+
+
+def _gate(p, y, z, cfg: ArchConfig):
+    """The output gate: ``y * silu(z)``, RMS-normalised with the gated
+    norm."""
+    y = y * F.silu(z)
+    if cfg.ssm_gated_norm:
+        y = L.rms_norm(y, p["ln_out"], cfg.norm_eps)
+    return y
 
 
 def ssd_scan(x, dt, A, B, C, chunk: int, h0=None):
@@ -118,22 +145,48 @@ def ssd_scan(x, dt, A, B, C, chunk: int, h0=None):
     return y, hprev
 
 
-def ssm_forward(p, u, cfg: ArchConfig, h0=None):
-    """Full-sequence SSD block. u: (B,S,D). Returns (y, h_final)."""
+def _ssm_seq(p, u, cfg: ArchConfig, h0=None, conv0=None, valid=None):
+    """-> (y, h_final, padded conv input (B,K-1+S,C))."""
     s = cfg.ssm
     d_inner, nheads, _ = _dims(cfg)
     cd = cfg.dtype("compute")
     z, xbc, dt_raw = _split_proj(p, u, cfg)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"], cd)
-    x, B, C = torch.split(xbc, [d_inner, s.state_dim, s.state_dim], dim=-1)
+    act, pad = _causal_conv(xbc, p["conv_w"], p["conv_b"], cd, conv0)
+    x, B, C = torch.split(act, [d_inner, s.state_dim, s.state_dim], dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])
+    if valid is not None:
+        dt = torch.where(valid[..., None], dt, 0.0)
     A = torch.exp(p["A_log"])
     xh = x.reshape(*x.shape[:2], nheads, s.head_dim)
     y, hf = ssd_scan(xh, dt, A, B, C, s.chunk, h0=h0)
     y = y + p["D"][:, None].to(cd) * xh
-    y = y.reshape(*u.shape[:2], d_inner)
-    y = y * F.silu(z)
-    return y @ p["out_proj"].to(cd), hf
+    y = _gate(p, y.reshape(*u.shape[:2], d_inner), z, cfg)
+    return y @ p["out_proj"].to(cd), hf, pad
+
+
+def ssm_forward(p, u, cfg: ArchConfig, h0=None):
+    """Full-sequence SSD block. u: (B,S,D). Returns (y, h_final)."""
+    y, hf, _ = _ssm_seq(p, u, cfg, h0=h0)
+    return y, hf
+
+
+def ssm_prefill(p, u, cfg: ArchConfig, state=None, valid=None):
+    """A right-padded batch u (B,S,D) from ``state`` ({"h", "conv"} as
+    ``init_ssm_cache``; default zeros); ``valid`` (B,S) bool marks each
+    row's real positions, a prefix. Returns (y, {"h", "conv"}): the state
+    after each row's last real position."""
+    state = state or {}
+    y, hf, pad = _ssm_seq(p, u, cfg, h0=state.get("h"),
+                          conv0=state.get("conv"), valid=valid)
+    k1 = cfg.ssm.conv_width - 1
+    b, s = u.shape[:2]
+    n = (torch.full((b,), s, device=u.device) if valid is None
+         else valid.sum(dim=1))
+    # the padded input holds K-1 rows before position 0: row n..n+K-2 are
+    # the K-1 inputs up to position n-1
+    idx = (n[:, None] + torch.arange(k1, device=u.device))[..., None]
+    tail = pad.gather(1, idx.expand(b, k1, pad.shape[-1]))
+    return y, {"h": hf, "conv": tail}
 
 
 def init_ssm_cache(batch: int, cfg: ArchConfig, device="cpu"):
@@ -147,9 +200,10 @@ def init_ssm_cache(batch: int, cfg: ArchConfig, device="cpu"):
     }
 
 
-def ssm_decode(p, u, cache, cfg: ArchConfig):
+def ssm_decode(p, u, cache, cfg: ArchConfig, active=None):
     """Single-token step. u: (B,1,D); cache {"h": (B,H,P,N) fp32, "conv":
-    (B,K-1,d_conv)}, updated in place. Returns (y, cache)."""
+    (B,K-1,d_conv)}, updated in place; ``active`` (B,) bool: the rows
+    whose state advances (default all). Returns (y, cache)."""
     s = cfg.ssm
     d_inner, nheads, _ = _dims(cfg)
     cd = cfg.dtype("compute")
@@ -162,15 +216,19 @@ def ssm_decode(p, u, cache, cfg: ArchConfig):
     x, B, C = torch.split(xbc_t, [d_inner, s.state_dim, s.state_dim],
                           dim=-1)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])[:, 0]          # (B,H)
+    if active is not None:
+        dt = torch.where(active[:, None], dt, 0.0)
     A = torch.exp(p["A_log"])
     xh = x.reshape(x.shape[0], nheads, s.head_dim).float()
     decay = torch.exp(-dt * A)[:, :, None, None]                  # (B,H,1,1)
     inject = torch.einsum("bh,bhp,bn->bhpn", dt, xh, B[:, 0].float())
-    h = decay * cache["h"] + inject
+    h = cache["h"].mul_(decay).add_(inject)
     y = torch.einsum("bhpn,bn->bhp", h, C[:, 0].float())
     y = y + p["D"][:, None] * xh
     y = y.reshape(u.shape[0], 1, d_inner).to(cd)
-    y = y * F.silu(z)
-    cache["h"].copy_(h)
-    cache["conv"].copy_(hist[:, 1:, :])
+    y = _gate(p, y, z, cfg)
+    tail = hist[:, 1:, :]
+    if active is not None:
+        tail = torch.where(active[:, None, None], tail, cache["conv"])
+    cache["conv"].copy_(tail)
     return y @ p["out_proj"].to(cd), cache

@@ -10,6 +10,10 @@
   encdec — Whisper: encoder (non-causal) over stub audio-frame embeddings
            ``batch["enc_emb"]`` + decoder (causal + cross), sinusoidal
            positions, no RoPE
+  hybrid_moe — Granite 4.0-H (the port alone): per ``cfg.layer_kinds``,
+           (norm, Mamba-2 SSD or GQA attention, norm, dropless MoE with a
+           shared expert), each branch scaled by ``residual_multiplier``;
+           decoded only through ``serving.decode.paged_decode_step``
 
 Port of the JAX package's ``models/transformer.py``; the JAX ``lax.scan``
 over stacked layer params becomes a Python loop over layers. Params keep
@@ -17,7 +21,9 @@ the JAX tree: ``{"embed", "ln_f", "blocks"}`` with every ``blocks`` leaf
 stacked on a leading layer axis; for the hybrid ``{"super": {"rec":
 leaves stacked (n_super, n_rec, ...), "attn": (n_super, ...)}, "rem"}``;
 for the vlm ``{"super": {"self": (n_super, per - 1, ...), "cross":
-(n_super, ...)}, "rem"}``; for encdec ``{"enc", "enc_ln", "blocks"}``.
+(n_super, ...)}, "rem"}``; for encdec ``{"enc", "enc_ln", "blocks"}``;
+for hybrid_moe ``{"mamba_blocks", "attn_blocks"}``, each stacked over its
+own kind's layers in order.
 So ``models.convert.params_from_jax`` is a leaf-by-leaf copy. Each
 forward splits every stacked leaf once (``unstack``), so under autograd a
 leaf's gradient is stacked once, as the scan's is. Under autograd each
@@ -58,8 +64,9 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
 
-#: the arch families the port runs: all of the JAX package's
-PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+#: the arch families the port runs: all of the JAX package's, and
+#: hybrid_moe
+PORTED = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec", "hybrid_moe")
 
 
 def require_ported(cfg: ArchConfig) -> None:
@@ -94,6 +101,25 @@ def _hybrid_counts(cfg: ArchConfig):
     return n_super, n_rem, sum(1 for x in pattern if x == "rec")
 
 
+def _hybrid_moe_counts(cfg: ArchConfig):
+    """(Mamba layers, attention layers)."""
+    kinds = cfg.layer_kinds
+    return kinds.count("mamba"), kinds.count("attention")
+
+
+def hybrid_moe_layers(params, cfg: ArchConfig):
+    """[(kind, index within its kind, the layer's tree)] in layer order."""
+    n_m, n_a = _hybrid_moe_counts(cfg)
+    stacks = {"mamba": unstack(params["mamba_blocks"], n_m),
+              "attention": unstack(params["attn_blocks"], n_a)}
+    seen = {"mamba": 0, "attention": 0}
+    out = []
+    for kind in cfg.layer_kinds:
+        out.append((kind, seen[kind], stacks[kind][seen[kind]]))
+        seen[kind] += 1
+    return out
+
+
 def _vlm_counts(cfg: ArchConfig):
     """(blocks a super-block (per - 1 self + 1 cross), super-blocks,
     remainder dense layers)."""
@@ -112,6 +138,11 @@ def _init_block(kind: str, cfg: ArchConfig, gen, wdt, lead: tuple, dev):
     mlp = lambda: L.init_mlp(cfg, gen, **kw)
     if kind == "ssm":
         return {"ln": ln(), "ssm": S.init_ssm(cfg, gen, **kw)}
+    if kind in ("mamba", "attention"):                      # hybrid_moe
+        mixer = (S.init_ssm(cfg, gen, **kw) if kind == "mamba"
+                 else attn())
+        return {"ln1": ln(), ("ssm" if kind == "mamba" else "attn"): mixer,
+                "ln2": ln(), "moe": M.init_moe(cfg, gen, **kw)}
     if kind == "rec":
         return {"ln1": ln(), "rec": R.init_rglru_block(cfg, gen, **kw),
                 "ln2": ln(), "mlp": mlp()}
@@ -158,6 +189,10 @@ def init_params(generator: torch.Generator, cfg: ArchConfig, *,
                            "cross": block("cross", n_super)}
         if n_rem:
             params["rem"] = block("dense", n_rem)
+    elif t == "hybrid_moe":
+        n_m, n_a = _hybrid_moe_counts(cfg)
+        params["mamba_blocks"] = block("mamba", n_m)
+        params["attn_blocks"] = block("attention", n_a)
     elif t == "encdec":
         params["enc"] = block("dense", cfg.encoder_layers)
         params["enc_ln"] = L.init_rms_norm(cfg.d_model, pdt, dev)
@@ -263,6 +298,41 @@ def _encdec_block(bp, x, enc, cfg, *, attn_impl="torch"):
     return x, kv, ckv
 
 
+def moe_ffn(bp, x, cfg, valid=None, stats=None):
+    """A hybrid_moe layer's second half: x + r * moe(norm(x)). ``valid``
+    (x's leading shape, bool): the rows routed to experts (default all).
+    Up to ``moe.DENSE_MAX_ROWS`` rows the dense dispatch runs over every
+    row, the others unrouted (no host read); above, the valid rows alone,
+    gathered (one host read) and grouped by expert. ``stats``:
+    ``moe_dropless``'s."""
+    h = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
+    shape = h.shape
+    h2 = h.reshape(-1, shape[-1])
+    if valid is not None and h2.shape[0] > M.DENSE_MAX_ROWS:
+        vidx = valid.reshape(-1).nonzero()[:, 0]
+        y = torch.zeros_like(h2).index_copy(
+            0, vidx, M.moe_dropless(bp["moe"], h2[vidx], cfg))
+    else:
+        y = M.moe_dropless(bp["moe"], h2, cfg, stats=stats, live=(
+            None if valid is None else valid.reshape(-1)))
+    return x + cfg.residual_multiplier * y.reshape(shape)
+
+
+def _mamba_moe_block(bp, x, cfg, state, valid):
+    y, st = S.ssm_prefill(bp["ssm"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                          cfg, state=state, valid=valid)
+    x = x + cfg.residual_multiplier * y
+    return moe_ffn(bp, x, cfg, valid), st
+
+
+def _attn_moe_block(bp, x, cfg, valid, attn_impl="torch"):
+    h, kv = L.attention_forward(bp["attn"],
+                                L.rms_norm(x, bp["ln1"], cfg.norm_eps),
+                                cfg, attn_impl=attn_impl)
+    x = x + cfg.residual_multiplier * h
+    return moe_ffn(bp, x, cfg, valid), kv
+
+
 def _add_positions(x):
     """``x`` (B, S, d) plus the sinusoid of positions 0..S-1."""
     return x + L.sinusoidal_positions(x.shape[1], x.shape[2],
@@ -294,7 +364,16 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
     (n_super,B,S,K,hd)}, "rem": (n_rem,B,d_rnn)} (hybrid); {"super":
     {"k","v": (n_super,per-1,B,S,K,hd), "ck","cv": (n_super,B,n_img,K,
     hd)}} (vlm: nothing of the "rem" layers); {"blocks": {"k","v":
-    (L,B,S,K,hd), "ck","cv": (L,B,S_enc,K,hd)}} (encdec)."""
+    (L,B,S,K,hd), "ck","cv": (L,B,S_enc,K,hd)}} (encdec); {"blocks":
+    {"k","v": (n_attn,B,S,K,hd)}, "ssm": {"h": (n_mamba,B,H,P,N), "conv":
+    (n_mamba,B,K-1,d_conv)}} (hybrid_moe).
+
+    hybrid_moe also reads, where given: ``batch["valid"]`` (B,S) bool,
+    each row's real positions, a prefix (right padding; the others are not
+    routed to experts and leave the Mamba states as they were; ``moe_ffn``),
+    and ``batch["ssm_h"]`` /
+    ``batch["ssm_conv"]``, the Mamba states to start from, stacked like
+    the cache's."""
     require_ported(cfg)
     if window is None:
         window = cfg.sliding_window
@@ -349,6 +428,24 @@ def forward(params, batch, cfg: ArchConfig, *, return_cache: bool = False,
                 rems.append(st)
             if return_cache:
                 cache["rem"] = torch.stack(rems)
+    elif t == "hybrid_moe":
+        valid = batch.get("valid")
+        ks, vs, hs, convs = [], [], [], []
+        for kind, i, bp in hybrid_moe_layers(params, cfg):
+            if kind == "mamba":
+                state = ({"h": batch["ssm_h"][i], "conv": batch["ssm_conv"][i]}
+                         if "ssm_h" in batch else None)
+                x, st = run(_mamba_moe_block, bp, x, cfg, state, valid)
+                hs.append(st["h"])
+                convs.append(st["conv"])
+            else:
+                x, (k, v) = run(_attn_moe_block, bp, x, cfg, valid,
+                                attn_impl=attn_impl)
+                ks.append(k)
+                vs.append(v)
+        if return_cache:
+            cache["blocks"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            cache["ssm"] = {"h": torch.stack(hs), "conv": torch.stack(convs)}
     elif t == "vlm":
         per, n_super, n_rem = _vlm_counts(cfg)
         img = batch["img_emb"].to(x.dtype)
@@ -424,6 +521,7 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     which the caller may fill (e.g. from ``forward(return_cache=True)``);
     decode reads them and never writes them."""
     require_ported(cfg)
+    _no_dense_decode(cfg)
     if window is None:
         window = cfg.sliding_window
     t = cfg.arch_type
@@ -463,6 +561,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
     return out
 
 
+def _no_dense_decode(cfg: ArchConfig) -> None:
+    if cfg.arch_type == "hybrid_moe":
+        raise ValueError("hybrid_moe decodes through the paged cache "
+                         "(serving.decode.paged_decode_step), not a dense "
+                         "per-batch cache")
+
+
 def _layer(cache: dict, *idx) -> dict:
     """One layer's views of a stacked cache (writes land in the stack)."""
     return {k: a[idx] for k, a in cache.items()}
@@ -497,6 +602,7 @@ def decode_step(params, cache, tokens, pos: int, cfg: ArchConfig,
     """tokens: (B,1) int; pos: int. Returns (logits (B,1,V), cache), the
     cache updated in place."""
     require_ported(cfg)
+    _no_dense_decode(cfg)
     if window is None:
         window = cfg.sliding_window
     x = L.embed(params["embed"], tokens, cfg)

@@ -2,8 +2,14 @@
 per-request position vector over a page-table-indirected cache.
 
 Port of the JAX package's ``serving/decode.py``: dense and MoE stacks
-(the attention-free and hybrid families keep a recurrent state, not a KV
-cache, and raise ``ValueError`` as the JAX function does).
+(the attention-free and Griffin hybrid families keep a recurrent state,
+not a KV cache, and raise ``ValueError`` as the JAX function does), and
+the port's hybrid_moe (Granite 4.0-H): its attention layers read and
+write the pool, its Mamba layers advance the per-slot state held beside
+it (``pages["ssm_h"]``, ``pages["ssm_conv"]``, ``paged_cache.init_state``)
+for the active slots only, and its MoE is the dropless layer's dense
+dispatch, every expert over every slot with the inactive slots unrouted:
+fixed shapes and no host read, so the step captures as one graph.
 
 Bitwise contract (pinned in ``tests/test_torch_serving.py``): gathering a
 slot's pages yields exactly the dense ``(B, W, K, hd)`` ring buffer, the
@@ -51,20 +57,24 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import valid_mask
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.models.transformer import require_ported, unstack
+from repro_torch.models import ssm as S
+from repro_torch.models.transformer import (hybrid_moe_layers, moe_ffn,
+                                            require_ported, unstack)
 
 __all__ = ["ATTN_IMPLS", "PAGED_FAMILIES", "DecodeGraph",
            "check_paged_family", "paged_attention_decode",
            "paged_decode_step"]
 
-#: the arch families whose decode state is a KV cache that pages
-PAGED_FAMILIES = ("dense", "moe")
+#: the arch families whose decode state is a KV cache that pages (with
+#: per-slot recurrent state beside it for hybrid_moe)
+PAGED_FAMILIES = ("dense", "moe", "hybrid_moe")
 
 
 def check_paged_family(cfg: ArchConfig) -> None:
     """Raise ``ValueError`` for a family paged decode does not serve."""
     if cfg.arch_type not in PAGED_FAMILIES:
-        raise ValueError(f"paged decode supports dense/moe, not "
+        raise ValueError(f"paged decode supports "
+                         f"{'/'.join(PAGED_FAMILIES)}, not "
                          f"{cfg.arch_type!r}")
 
 
@@ -138,14 +148,18 @@ def paged_attention_decode(p, x, k_pages, v_pages, table, pos, active,
 def paged_decode_step(params, pages, table, tokens, pos, active,
                       cfg: ArchConfig, *, window: Optional[int] = None,
                       attn_impl: str = "torch",
-                      gather_pages: Optional[int] = None):
-    """One continuous-batching decode step for dense and MoE stacks.
+                      gather_pages: Optional[int] = None, moe_stats=None):
+    """One continuous-batching decode step for dense, MoE and hybrid_moe
+    stacks.
 
-    pages: {"k","v"}: (L, P, page, K, hd), updated in place; table: (B,
+    pages: {"k","v"}: (L, P, page, K, hd), updated in place (hybrid_moe:
+    the attention layers', and the per-slot state); table: (B,
     max_pages) int32 shared by all layers; tokens: (B,1) int; pos: (B,)
-    int32; active: (B,) bool. Returns (logits (B,1,V) fp32, pages).
-    Mirrors ``transformer.decode_step``'s layer loop so the math
-    bit-matches.
+    int32; active: (B,) bool. ``moe_stats`` (hybrid_moe): the dense
+    dispatch's device counters, and ``steps``, the steps with an active
+    row (``moe.moe_dropless``). Returns (logits (B,1,V) fp32, pages).
+    Dense and MoE mirror ``transformer.decode_step``'s layer loop so the
+    math bit-matches.
     """
     if window is None:
         window = cfg.sliding_window
@@ -153,6 +167,12 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
     check_paged_family(cfg)
     require_ported(cfg)
     x = L.embed(params["embed"], tokens, cfg)
+    if cfg.arch_type == "hybrid_moe":
+        x = _hybrid_moe_layers(params, pages, x, table, pos, active, cfg,
+                               attn_impl=attn_impl,
+                               gather_pages=gather_pages, stats=moe_stats)
+        x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
+        return L.unembed(params["embed"], x, cfg), pages
     for i, bp in enumerate(unstack(params["blocks"], cfg.num_layers)):
         a, _ = paged_attention_decode(
             bp["attn"], L.rms_norm(x, bp["ln1"], cfg.norm_eps),
@@ -167,6 +187,25 @@ def paged_decode_step(params, pages, table, tokens, pos, active,
     x = L.rms_norm(x, params["ln_f"], cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
     return logits, pages
+
+
+def _hybrid_moe_layers(params, pages, x, table, pos, active,
+                       cfg: ArchConfig, *, attn_impl, gather_pages, stats):
+    r = cfg.residual_multiplier
+    if stats is not None:
+        stats["steps"] += active.any().to(stats["steps"].dtype)
+    for kind, i, bp in hybrid_moe_layers(params, cfg):
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        if kind == "mamba":
+            y, _ = S.ssm_decode(bp["ssm"], h, {"h": pages["ssm_h"][i],
+                                               "conv": pages["ssm_conv"][i]},
+                                cfg, active=active)
+        else:
+            y, _ = paged_attention_decode(
+                bp["attn"], h, pages["k"][i], pages["v"][i], table, pos,
+                active, cfg, attn_impl=attn_impl, gather_pages=gather_pages)
+        x = moe_ffn(bp, x + r * y, cfg, active[:, None], stats=stats)
+    return x
 
 
 class DecodeGraph:
@@ -186,26 +225,36 @@ class DecodeGraph:
     ``replay`` copies a step's operands into the static ones (device
     copies, no host sync) and replays the graph on the current stream;
     ``logits`` and ``tokens`` are then that step's outputs, overwritten by
-    the next replay. Each replay adds the B6 launches the capture recorded
-    to ``paged_attention.launches``, which counts kernel runs.
+    the next replay. Each replay adds the B6 and B5 launches the capture
+    recorded to ``paged_attention.launches`` and ``flash_attention.launches``,
+    which count kernel runs.
+
+    The server records hybrid_moe's parallel prefill the same way, one
+    graph a shape (``logits`` None), all of them in one memory ``pool``:
+    they replay one at a time on one stream, and each keeps its outputs.
     """
 
-    def __init__(self, step, operands, stream: torch.cuda.Stream):
+    def __init__(self, step, operands, stream: torch.cuda.Stream,
+                 pool=None):
         self.operands = operands
         current = torch.cuda.current_stream(stream.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             step(*operands)
         current.wait_stream(stream)
-        before = pa_ops.paged_attention.launches
+        before = (pa_ops.paged_attention.launches,
+                  fa_ops.flash_attention.launches)
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, stream=stream):
+        with torch.cuda.graph(self.graph, stream=stream, pool=pool):
             self.logits, self.tokens = step(*operands)
-        self.launches = pa_ops.paged_attention.launches - before
-        pa_ops.paged_attention.launches = before
+        self.launches = pa_ops.paged_attention.launches - before[0]
+        self.flash_launches = fa_ops.flash_attention.launches - before[1]
+        pa_ops.paged_attention.launches, fa_ops.flash_attention.launches = \
+            before
 
     def replay(self, *operands) -> None:
         for static, x in zip(self.operands, operands, strict=True):
             static.copy_(x)
         self.graph.replay()
         pa_ops.paged_attention.launches += self.launches
+        fa_ops.flash_attention.launches += self.flash_launches

@@ -18,6 +18,17 @@ every layer's kernels one by one. The gather arms (their width follows
 the bucket ladder) and the CPU run the eager step; the graph is a
 recording of it, not a second definition.
 
+A family with recurrent state (hybrid_moe, Granite 4.0-H) keeps it per
+slot beside the pool (``paged_cache.init_state``). Admission zeroes the
+admitted slots' state (a ``serve.state_reset`` instant); the parallel
+prefill runs the admitted slots' rows alone, from that state, and hands
+each the state at its prompt's last token; decode advances the active
+slots' state. Its work is then the admitted prompts', and on the card
+each (lanes, bucket) shape replays a graph of its own, recorded at
+``warmup``. Its MoE is dropless and routes no padded row or empty slot;
+the decode step counts on the device the experts its live rows chose,
+read once after ``run``.
+
 Arrivals are an ``exec.trace.EventTrace``: ``commit_time`` carries
 arrival times and ``read_version[t] = t``. ``poisson_trace`` draws
 reproducible Poisson arrivals; any saved trace replays the same load.
@@ -33,14 +44,21 @@ Spans (``obs.spans``; free when no tracer is installed): one
 ``serve.iteration`` per pass of the loop, whose self time is the loop's
 own host work; a ``serve.admit`` instant per admission (``rid``,
 ``slot``, ``queue_wait_s``); ``serve.prefill`` (``lanes``, ``bucket``,
-``rows`` computed, admitted ``prompt_tokens``, ``rids``,
+``rows`` computed: slots x bucket; for hybrid_moe the admitted lanes,
+to a power of two, x bucket;
+admitted ``prompt_tokens``, ``rids``,
 ``prompt_lens``); ``serve.decode_step`` (``occupancy``, ``gather``,
 ``context_tokens``, ``contexts``) holding ``serve.decode.upload`` (the
 step's operand copies) and ``serve.decode.dispatch`` (the host enqueueing
 the step, opened in ``_step``; ``graph`` says whether it replayed the
 captured step), so its self time is the wait for the token; a
 ``serve.retire`` instant per finished request (``rid``,
-``tokens``, ``first_token_s``, ``last_token_s``). The ``rid`` ties a
+``tokens``, ``first_token_s``, ``last_token_s``). hybrid_moe adds
+``serve.prefill``'s ``ssm_layers`` and ``routed_pairs`` (admitted prompt
+tokens x experts a token), a ``serve.state_reset`` instant per admission
+pass (``slots``, ``rids``), and one ``serve.moe_experts`` instant after
+the loop (``hits`` per expert, ``live_experts`` summed over steps and
+layers, ``steps``, ``layers``, ``experts``). The ``rid`` ties a
 request's spans together; times in attributes are on the run's clock.
 
 Prefill modes:
@@ -76,6 +94,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import check_attn_impl, resolve
 from repro_torch.engine.timing import monotonic, synchronize
 from repro_torch.exec.trace import EventTrace
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.models.convert import to_compute_dtype
 from repro_torch.obs import spans
@@ -83,7 +102,7 @@ from repro_torch.obs.metrics import MetricRegistry
 from repro_torch.serving.decode import (DecodeGraph, check_paged_family,
                                         paged_decode_step)
 from repro_torch.serving.paged_cache import (PagedCacheSpec, PageAllocator,
-                                             init_pages)
+                                             init_pages, init_state)
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +223,12 @@ class ContinuousServer:
 
     Counters in ``registry``: ``serving.decode_graph_captures`` (graphs
     recorded) and ``serving.decode_graph_replays`` (decode steps, scan
-    prefill positions included, that replayed one).
+    prefill positions included, that replayed one). hybrid_moe adds, after
+    each ``run``, the series ``serving.moe_expert_hits`` (one sample an
+    expert, step = its id: the live rows' choices of it over the run's
+    decode steps and layers), the gauge ``serving.moe_live_share`` (the
+    mean share of the experts a step's live rows chose in a layer) and the
+    counter ``serving.prefill_graph_captures``.
     """
 
     def __init__(self, cfg: ArchConfig, params=None, *, slots: int = 8,
@@ -238,13 +262,21 @@ class ContinuousServer:
             cfg, num_slots=slots, page_size=page_size, max_seq=max_seq,
             window=window)
         self.alloc = PageAllocator(self.spec)
-        self.pages = init_pages(self.spec, self.device)
+        self.pages = self._new_pages()
+        self._moe_stats = None
+        if cfg.arch_type == "hybrid_moe":
+            z = lambda *shape: torch.zeros(shape, dtype=torch.int64,
+                                           device=self.device)
+            self._moe_stats = {"hits": z(cfg.moe.num_experts), "live": z(),
+                               "steps": z()}
         self.registry = registry if registry is not None else MetricRegistry()
         # the decode step as one CUDA graph: on the card at the in-kernel
         # page walk, whose shapes never change (module docstring)
         self._graphed = self.device.type == "cuda" and attn_impl == "cuda"
         self._graph: Optional[DecodeGraph] = None
         self._capture_stream: Optional[torch.cuda.Stream] = None
+        self._prefill_graphs: Dict[tuple, DecodeGraph] = {}
+        self._graph_pool = None
 
         # the one remaining impl fallback, made loud: flash-over-a-copy
         # cannot express a wrapped ring, so sliding windows run the plain
@@ -263,6 +295,11 @@ class ContinuousServer:
 
     # -- device operands -------------------------------------------------
 
+    def _new_pages(self) -> dict:
+        """The zero pool and, for a family with one, the per-slot state."""
+        return {**init_pages(self.spec, self.device),
+                **init_state(self.cfg, self.spec.num_slots, self.device)}
+
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         """A host array as a fresh device tensor (a copy: the allocator
         keeps mutating its tables)."""
@@ -277,7 +314,7 @@ class ContinuousServer:
         logits, self.pages = paged_decode_step(
             self.params, self.pages, table, tokens, pos, active, self.cfg,
             window=self.window, attn_impl=self.attn_impl,
-            gather_pages=gather_pages)
+            gather_pages=gather_pages, moe_stats=self._moe_stats)
         return logits, torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
 
     def _capture(self) -> None:
@@ -323,24 +360,95 @@ class ContinuousServer:
     def _parallel_prefill(self, table, prompts, plens, admit,
                           gather_pages: Optional[int]) -> torch.Tensor:
         del gather_pages                               # no gather here
-        B, Pb = prompts.shape
-        page = self.spec.page_size
+        S, Pb = prompts.shape
+        tpos = torch.arange(Pb, device=self.device)[None, :]     # (1, Pb)
+        act = admit[:, None] & (tpos < plens[:, None])           # (S, Pb)
+        if "ssm_h" in self.pages:
+            return self._prefill_lanes(table, prompts, act, admit)
         logits, _, cache = T.forward(self.params, {"tokens": prompts},
                                      self.cfg, return_cache=True,
                                      attn_impl=self.attn_impl,
                                      window=self.window)
-        tpos = torch.arange(Pb, device=self.device)[None, :]     # (1, Pb)
-        act = admit[:, None] & (tpos < plens[:, None])           # (B, Pb)
+        self._write_kv(cache, table, act)
+        toks = torch.argmax(logits, dim=-1).to(torch.int32)      # (S, Pb)
+        return toks.T                                            # (Pb, S)
+
+    def _write_kv(self, cache, table, act) -> None:
+        """Scatter the prefill's K/V rows (valid positions ``act``) into
+        the rows' pages (``table``)."""
+        B, Pb = act.shape
+        page = self.spec.page_size
+        tpos = torch.arange(Pb, device=self.device)[None, :]
         pid = table.long().gather(1, (tpos // page).expand(B, Pb))
         inpg = (tpos % page).expand(B, Pb)
         actx = act[None, :, :, None, None]
         for name in ("k", "v"):
             pool = self.pages[name]                               # (L,P,pg,K,hd)
-            rows = cache["blocks"][name].to(pool.dtype)           # (L,B,Pb,K,hd)
+            kv = cache["blocks"][name].to(pool.dtype)             # (L,B,Pb,K,hd)
             old = pool[:, pid, inpg]
-            pool[:, pid, inpg] = torch.where(actx, rows, old)
-        toks = torch.argmax(logits, dim=-1).to(torch.int32)      # (B, Pb)
-        return toks.T                                            # (Pb, B)
+            pool[:, pid, inpg] = torch.where(actx, kv, old)
+
+    def _lanes_step(self, table, prompts, valid, rows):
+        """hybrid_moe's prefill of the slots ``rows`` (n,) alone: their
+        right-padded prompts (n, Pb), valid positions ``valid``, from their
+        state, which it hands back with their K/V. A row with no valid
+        position writes back exactly what it read. Returns (None, (n, Pb)
+        int32 argmax): ``DecodeGraph``'s step."""
+        batch = {"tokens": prompts, "valid": valid,
+                 "ssm_h": self.pages["ssm_h"][:, rows],
+                 "ssm_conv": self.pages["ssm_conv"][:, rows]}
+        logits, _, cache = T.forward(self.params, batch, self.cfg,
+                                     return_cache=True,
+                                     attn_impl=self.attn_impl)
+        for name in ("h", "conv"):
+            self.pages["ssm_" + name][:, rows] = cache["ssm"][name]
+        self._write_kv(cache, table, valid)
+        return None, torch.argmax(logits, dim=-1).to(torch.int32)
+
+    def _prefill_lanes(self, table, prompts, act, admit) -> torch.Tensor:
+        """The admitted slots' rows alone (the work is the admitted
+        prompts', not slots x bucket), padded to a power of two with rows
+        of other slots that have no valid position. On the card a shape of
+        at most ``moe.DENSE_MAX_ROWS`` rows replays its captured graph (one
+        a shape, recorded at ``warmup`` or first use): an eager prefill is
+        ~1800 launches, bound by the host. -> (Pb, S)."""
+        S, Pb = prompts.shape
+        admitted = np.flatnonzero(admit.cpu().numpy())
+        n = min(_bucket(max(len(admitted), 1)), S)
+        rest = np.setdiff1d(np.arange(S), admitted)
+        rows = torch.from_numpy(np.concatenate(
+            [admitted, rest[:n - len(admitted)]])).to(self.device)
+        operands = (table[rows], prompts[rows], act[rows], rows)
+        if not (self._graphed and n * Pb <= M.DENSE_MAX_ROWS):
+            toks = self._lanes_step(*operands)[1]
+        else:
+            graph = self._prefill_graphs.get((n, Pb))
+            if graph is None:
+                graph = self._capture_lanes(n, Pb)
+            graph.replay(*operands)
+            toks = graph.tokens
+        out = torch.zeros((S, Pb), dtype=torch.int32, device=self.device)
+        return out.index_copy(0, rows, toks).T
+
+    def _capture_lanes(self, n: int, Pb: int) -> DecodeGraph:
+        """Record the prefill of ``n`` rows at bucket ``Pb`` over static
+        operands that name slot 0 with no valid position."""
+        dev = self.device
+        operands = (
+            torch.zeros((n, self.spec.pages_per_slot), dtype=torch.int32,
+                        device=dev),
+            torch.zeros((n, Pb), dtype=torch.int32, device=dev),
+            torch.zeros((n, Pb), dtype=torch.bool, device=dev),
+            torch.zeros((n,), dtype=torch.int64, device=dev))
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        graph = DecodeGraph(self._lanes_step, operands,
+                            self._capture_stream, pool=self._graph_pool)
+        self._prefill_graphs[(n, Pb)] = graph
+        self.registry.counter("serving.prefill_graph_captures").inc()
+        return graph
 
     def _prefill(self, *args, gather_pages: Optional[int]):
         fn = (self._scan_prefill if self.prefill_mode == "scan"
@@ -351,14 +459,36 @@ class ContinuousServer:
         """Fresh pool/allocator (and optionally a fresh metric registry),
         so a measured run can follow a warmup run. The decode graph wrote
         the old pool: it goes, and the next warmup or step records one
-        over the new pool."""
+        over the new pool (and so do the prefill graphs)."""
         self.alloc = PageAllocator(self.spec)
-        self.pages = init_pages(self.spec, self.device)
+        self.pages = self._new_pages()
         self._graph = None
+        self._prefill_graphs = {}
         if registry is not None:
             self.registry = registry
             if self._fallback_note is not None:
                 self.registry.note(self._fallback_note)
+
+    def _reset_state(self, slots: List[int], rids: List[int]) -> None:
+        """Zero the admitted slots' recurrent state."""
+        spans.instant("serve.state_reset", slots=slots, rids=rids)
+        idx = torch.tensor(slots, device=self.device)
+        for name in ("ssm_h", "ssm_conv"):
+            self.pages[name][:, idx] = 0
+
+    def _report_moe(self) -> None:
+        """Read the decode step's expert counters once and record them."""
+        st = {k: v.tolist() for k, v in self._moe_stats.items()}
+        n_layers, n_exp = self.cfg.num_layers, self.cfg.moe.num_experts
+        hits = self.registry.series("serving.moe_expert_hits")
+        for e, n in enumerate(st["hits"]):
+            hits.append(n, step=e)
+        if st["steps"]:
+            self.registry.gauge("serving.moe_live_share").set(
+                st["live"] / (st["steps"] * n_layers * n_exp))
+        spans.instant("serve.moe_experts", hits=st["hits"],
+                      live_experts=st["live"], steps=st["steps"],
+                      layers=n_layers, experts=n_exp)
 
     def _uses_gather(self) -> bool:
         """Does the decode step materialize a dense gathered view at all?
@@ -426,6 +556,11 @@ class ContinuousServer:
                                              device=self.device),
                           off, inact, gather_pages=self._prefill_gather(p)
                           ).cpu()
+            if "ssm_h" in self.pages and self._graphed:
+                for n in (1, 2, 4, 8):
+                    if n <= S and n * p <= M.DENSE_MAX_ROWS and \
+                            (n, p) not in self._prefill_graphs:
+                        self._capture_lanes(n, p)
 
     def run(self, requests: Sequence[Request]) -> ServeReport:
         """Serve every request; returns per-request accounting."""
@@ -444,6 +579,9 @@ class ContinuousServer:
         done_ctr = reg.counter("serving.requests_completed")
         tok_ctr = reg.counter("serving.tokens_generated")
 
+        if self._moe_stats is not None:
+            for v in self._moe_stats.values():
+                v.zero_()
         reqs = sorted(requests, key=lambda r: r.arrival)
         if self.window is None:
             for r in reqs:
@@ -522,6 +660,10 @@ class ContinuousServer:
                     qi += 1
                     n_active += 1
 
+                if admits and "ssm_h" in self.pages:
+                    self._reset_state(admits,
+                                      [slot_req[s].rid for s in admits])
+
                 # -- prefill the admitted slots (one bucketed call) -------
                 if admits:
                     plens = np.array([len(slot_req[s].prompt) if slot_req[s]
@@ -537,9 +679,15 @@ class ContinuousServer:
                     attrs = {}
                     if traced:
                         lens = [int(plens[s]) for s in admits]
-                        attrs = dict(rows=S * Pb, prompt_tokens=sum(lens),
+                        lanes = (S if "ssm_h" not in self.pages
+                                 else min(_bucket(len(admits)), S))
+                        attrs = dict(rows=lanes * Pb, prompt_tokens=sum(lens),
                                      rids=[slot_req[s].rid for s in admits],
                                      prompt_lens=lens)
+                        if self._moe_stats is not None:
+                            attrs.update(
+                                ssm_layers=self.pages["ssm_h"].shape[0],
+                                routed_pairs=sum(lens) * self.cfg.moe.top_k)
                     tpf = now()
                     with spans.span("serve.prefill", lanes=len(admits),
                                     bucket=Pb, **attrs):
@@ -603,6 +751,8 @@ class ContinuousServer:
                     if slot_left[s] == 0:
                         retire(int(s), tnow)
 
+        if self._moe_stats is not None:
+            self._report_moe()
         rids = np.array(sorted(finished), np.int64)
         occ = np.array(occ_samples) if occ_samples else np.zeros(1)
         return ServeReport(

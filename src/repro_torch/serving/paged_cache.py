@@ -20,6 +20,13 @@ scratch and writes back the value it just read. Duplicate scatter indices
 therefore only ever carry identical payloads and the update is
 order-independent — deterministic slot recycling with no retracing.
 
+A family with recurrent state (hybrid_moe) keeps it per slot beside the
+pool, for every Mamba layer (``init_state``): ``ssm_h`` (n_mamba, S, H,
+P, N) fp32 and ``ssm_conv`` (n_mamba, S, K-1, d_conv), the SSM state and
+the conv tail. The pool then holds the attention layers alone. Admission
+zeroes a slot's state, the prefill hands each admitted slot its prompt's
+state, and decode advances the active slots' state in place.
+
 The allocator is host-side (numpy tables, a free list): pages are
 allocated lazily as a slot's sequence crosses page boundaries and
 returned wholesale when the request retires, so peak KV memory follows
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.ssm import init_ssm_cache
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,8 +75,10 @@ class PagedCacheSpec:
                 f"page_size={page_size} must divide the cache width W={W} "
                 "(bitwise parity with the dense ring buffer needs the "
                 "gathered view to be exactly (B, W, K, hd))")
+        layers = (cfg.layer_kinds.count("attention")
+                  if cfg.arch_type == "hybrid_moe" else cfg.num_layers)
         return cls(num_slots=num_slots, page_size=page_size,
-                   pages_per_slot=W // page_size, num_layers=cfg.num_layers,
+                   pages_per_slot=W // page_size, num_layers=layers,
                    kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
                    dtype=cfg.compute_dtype)
 
@@ -80,6 +90,18 @@ def init_pages(spec: PagedCacheSpec, device="cpu"):
     dt = getattr(torch, spec.dtype)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_state(cfg: ArchConfig, num_slots: int, device="cpu"):
+    """Zero per-slot recurrent state (module docstring): {"ssm_h",
+    "ssm_conv"} for hybrid_moe, {} for the families that keep none."""
+    if cfg.arch_type != "hybrid_moe":
+        return {}
+    n = cfg.layer_kinds.count("mamba")
+    one = init_ssm_cache(num_slots, cfg, device)
+    return {"ssm_" + k: torch.zeros((n,) + a.shape, dtype=a.dtype,
+                                    device=device)
+            for k, a in one.items()}
 
 
 class PageAllocator:

@@ -1102,3 +1102,121 @@ def test_launcher_autotunes_and_traces_on_the_card(card, tmp_path):
     for xs, ws, s in C.conv_layer_shapes(cfg, 4):
         assert autotune._cache_key(xs, ws, s, card) in autotune._TILE_CACHE
     autotune.clear_tile_cache()
+
+
+# ---------------------------------------------------------------------------
+# granite-4.0-h-small (hybrid_moe): the decode replay, the pre-scaled q
+# ---------------------------------------------------------------------------
+
+def _granite_cfg(dtype):
+    from repro_torch.configs import get_smoke_config
+    return dataclasses.replace(get_smoke_config("granite-4.0-h-small"),
+                               d_model=256, num_heads=4, num_kv_heads=2,
+                               head_dim=64, compute_dtype=dtype,
+                               attention_multiplier=1 / 64)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_granite_decode_replay_is_the_eager_step(card, dtype):
+    """Every replay of the hybrid step (Mamba-2 state, paged attention,
+    the dropless MoE's dense dispatch and its counters, the argmax) gives
+    the eager step's logits, tokens and slot state bit for bit, run from
+    the same state; every decode step is a replay. Every prefill, a replay
+    of its shape's graph, gives the eager prefill's tokens, state and K/V
+    bit for bit."""
+    from repro_torch.obs.metrics import MetricRegistry
+    cfg = _granite_cfg(dtype)
+    reqs = _graph_reqs(cfg)
+    reg = MetricRegistry()
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl="cuda", prefill_mode="parallel",
+                           registry=reg, device=card)
+    srv.warmup(sorted({len(r.prompt) for r in reqs}))
+    graphed, seen = srv._step, []
+    state = ("ssm_h", "ssm_conv")
+
+    def step(table, tokens, pos, active, gather_pages):
+        before = {k: srv.pages[k].clone() for k in state}
+        got = graphed(table, tokens, pos, active, gather_pages)
+        logits = srv._graph.logits.clone()
+        after = {k: srv.pages[k].clone() for k in state}
+        counted = {k: v.clone() for k, v in srv._moe_stats.items()}
+        for k in state:
+            srv.pages[k].copy_(before[k])
+        want_logits, want = srv._decode(table, tokens, pos, active)
+        for k in state:
+            assert torch.equal(srv.pages[k], after[k]), (k, len(seen))
+        assert torch.equal(logits, want_logits), len(seen)
+        assert torch.equal(got, want), len(seen)
+        for k, v in counted.items():
+            srv._moe_stats[k].copy_(v)
+        seen.append(int(active.sum()))
+        return got
+
+    lanes, shapes = srv._prefill_lanes, []
+    pools = ("ssm_h", "ssm_conv", "k", "v")
+
+    def prefill(table, prompts, act, admit):
+        before = {k: srv.pages[k].clone() for k in pools}
+        got = lanes(table, prompts, act, admit)
+        after = {k: srv.pages[k].clone() for k in pools}
+        for k in pools:
+            srv.pages[k].copy_(before[k])
+        srv._graphed = False
+        want = lanes(table, prompts, act, admit)
+        srv._graphed = True
+        for k in pools:
+            assert torch.equal(srv.pages[k], after[k]), (k, len(shapes))
+        assert torch.equal(got, want), len(shapes)
+        shapes.append((int(admit.sum()), prompts.shape[1]))
+        return got
+
+    srv._step = step
+    srv._prefill_lanes = prefill
+    rep = srv.run(reqs)
+    assert len(rep.rids) == len(reqs)
+    steps = len(reg.series("serving.decode_step_s").values)
+    assert steps == len(seen) > 0 and min(seen) < 3 == max(seen)
+    assert reg.counter("serving.decode_graph_replays").value == steps
+    assert 0 < reg.gauge("serving.moe_live_share").value <= 1
+    # the prefills replayed graphs of several shapes, in the order the
+    # traffic asked for them, from one memory pool
+    assert len(set(shapes)) > 1
+    assert len(srv._prefill_graphs) >= len({s[1] for s in shapes})
+
+
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_prescaled_q_gives_the_configured_scale(card, dtype, tol):
+    """B5 and B6 divide the scores by sqrt(hd): q multiplied by
+    ``attention_multiplier * sqrt(hd)`` (as ``layers._project_qkv`` does)
+    gives the softmax at Granite's scale 1/128, against plain attention
+    at that scale."""
+    import math
+    mult, hd = 1 / 128, 128
+    s = mult * math.sqrt(hd)
+    g = torch.Generator(device=card).manual_seed(3)
+    q = torch.randn(2, 40, 8, hd, generator=g, device=card).to(dtype)
+    k = torch.randn(2, 40, 2, hd, generator=g, device=card).to(dtype)
+    v = torch.randn(2, 40, 2, hd, generator=g, device=card).to(dtype)
+
+    def plain(q, k, v, n):
+        kk = k.float().repeat_interleave(4, dim=2)[:, :n]
+        vv = v.float().repeat_interleave(4, dim=2)[:, :n]
+        sc = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * mult
+        qpos = torch.arange(q.shape[1], device=card) + n - q.shape[1]
+        mask = torch.arange(n, device=card)[None, :] <= qpos[:, None]
+        sc = sc.masked_fill(~mask, float("-inf"))
+        return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, -1), vv)
+
+    got = fa_ops.flash_attention(q * s, k, v, causal=True)
+    torch.testing.assert_close(got.float(), plain(q, k, v, 40), atol=tol,
+                               rtol=tol)
+    qd, kp, vp, table, pos = _paged(card, dtype, pos=(5, 0, 63))
+    got = pa_ops.paged_attention(qd * s, kp, vp, table, pos)
+    for b in range(3):
+        n = int(pos[b]) + 1
+        kr = kp[table[b].long()].reshape(-1, 2, hd)[None]
+        vr = vp[table[b].long()].reshape(-1, 2, hd)[None]
+        want = plain(qd[b:b + 1], kr, vr, n)
+        torch.testing.assert_close(got[b:b + 1].float(), want, atol=tol,
+                                   rtol=tol)
