@@ -41,7 +41,11 @@ passed over, nothing falls back to the CPU):
    computing the same function (timed here only; the port never calls
    it), and the card's bound; paged decode also with every row at a full
    table (its splits and cluster size printed beside), flash attention
-   also at recurrentgemma-2b's prefill shapes;
+   also at recurrentgemma-2b's prefill shapes; (4b) the Mamba-2 decode
+   kernel at granite-4.0-h-small's serving shapes (32 slots, 128 heads of
+   64 x 128, bf16 x) with 32 and with 12 slots live, checked against its
+   plain version (live state within 1e-5, inactive state bitwise), timed
+   beside the plain version and its bytes bound;
 5. the slice at full width: ``ContinuousServer`` on qwen2-7b (28 layers,
    d_model 3584, bf16 weights made from a seed) with ``attn_impl="cuda"``
    serves Poisson requests twice — scan prefill, then parallel prefill —
@@ -907,6 +911,67 @@ def phase_profile(torch, srv, steps: int = 5,
         fail(f"{what}: no paged_decode kernel in the profile")
     for s in range(S):
         srv.alloc.release(s)
+
+
+#: granite-4.0-h-small's Mamba-2 decode shapes in its served cell: slots,
+#: heads, head channels P, state size N (x, B, C in bf16)
+SSM_DECODE = dict(S=32, H=128, P=64, N=128)
+SSM_LIVE = (32, 12)            # all slots live; the cell's ~12 (Little's law)
+
+
+def phase_ssm_decode(torch) -> dict:
+    """(4b) The Mamba-2 decode kernel at ``SSM_DECODE`` with ``SSM_LIVE``
+    live slots (the others inactive): checked against its plain version
+    (live state within 1e-5, live y at the bf16 limit, inactive state
+    bitwise and y 0), then timed alone (L2 flushed, medians) beside the
+    plain version and its bytes bound: each live slot's fp32 state read
+    and written once, with its x, B, C and dt, and every slot's y."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.ssm_decode import ops as sd
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+    S, H, P, N = (SSM_DECODE[k] for k in ("S", "H", "P", "N"))
+    dev = torch.device("cuda")
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    h0 = torch.randn(S, H, P, N, generator=g, device=dev)
+    xbc = torch.randn(S, H * P + 2 * N, generator=g, device=dev).bfloat16()
+    x = xbc[:, :H * P].reshape(S, H, P)
+    B, C = xbc[:, H * P:H * P + N], xbc[:, H * P + N:]
+    raw = F.softplus(torch.randn(S, H, generator=g, device=dev) - 1.0)
+    A = torch.linspace(1.0, 16.0, H, device=dev)
+    D = torch.rand(H, generator=g, device=dev) + 0.5
+    out = {}
+    for live in SSM_LIVE:
+        active = torch.arange(S, device=dev) < live
+        dt = torch.where(active[:, None], raw, 0.0)
+        h, want_h = h0.clone(), h0.clone()
+        y = sd.ssm_decode(h, x, B, C, dt, A, D, active)
+        want_y = ssm_decode_ref(want_h, x, B, C, dt, A, D)
+        torch.cuda.synchronize()
+        err = compare(torch, f"ssm_decode state, {live} of {S} live",
+                      h[:live], want_h[:live], "float32")
+        compare(torch, f"ssm_decode y, {live} of {S} live", y[:live],
+                want_y[:live], "bfloat16")
+        if not (torch.equal(h[live:], h0[live:]) and not y[live:].any()):
+            fail(f"ssm_decode: an inactive slot's state changed or its y is "
+                 f"not 0 ({live} of {S} live)")
+        ms = cuda_ms(torch, lambda: sd.ssm_decode(h, x, B, C, dt, A, D,
+                                                  active),
+                     iters=50, flush=flush)
+        plain = cuda_ms(torch, lambda: ssm_decode_ref(want_h, x, B, C, dt, A,
+                                                      D),
+                        iters=20, flush=flush)
+        nbytes = live * (H * P * N * 8 + H * P * 2 + 2 * N * 2 + H * 4) \
+            + S * H * P * 2
+        b_ms, b_by = bound(nbytes, live * H * P * N * 6, FP32_FLOP_S)
+        out[live] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                         max_abs_err=err)
+        log(f"[time] ssm_decode bf16 x S={S} H={H} P={P} N={N} live={live}: "
+            f"kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms={b_ms:.5f} "
+            f"({b_by}, {nbytes / 1e6:.1f} MB) = {100 * b_ms / ms:.1f}% of "
+            f"the bound, {nbytes / ms / 1e6:.0f} GB/s")
+    del flush, h0, h, want_h
+    return out
 
 
 def phase_slice(torch) -> dict:
@@ -3380,6 +3445,7 @@ def main(argv=None) -> None:
     errs.update(phase_check_train(torch))
     times = phase_time(torch)
     times.update(phase_time_train(torch))
+    phase_ssm_decode(torch)
     if args.kernels_only:
         log(f"[done] kernels only, {time.perf_counter() - t_start:.1f} s")
         return

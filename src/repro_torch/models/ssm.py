@@ -22,6 +22,10 @@ With ``ArchConfig.ssm_gated_norm`` (Granite 4.0-H) the output is
 at padded positions, so the state passes them unchanged, and the conv
 tail is each row's last K-1 real inputs. ``ssm_decode`` with ``active``
 leaves inactive rows' state exactly as it was (decay 1, nothing added).
+Its recurrence runs in ``kernels/ssm_decode``: a CUDA state is updated by
+the hand-written kernel, which reads and writes each live slot's state
+once and does not touch an inactive one's; a CPU state by its plain
+version (``kernels/ssm_decode/ref.py``).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssm_decode import ops as SD
 from repro_torch.models import layers as L
 
 
@@ -219,12 +224,9 @@ def ssm_decode(p, u, cache, cfg: ArchConfig, active=None):
     if active is not None:
         dt = torch.where(active[:, None], dt, 0.0)
     A = torch.exp(p["A_log"])
-    xh = x.reshape(x.shape[0], nheads, s.head_dim).float()
-    decay = torch.exp(-dt * A)[:, :, None, None]                  # (B,H,1,1)
-    inject = torch.einsum("bh,bhp,bn->bhpn", dt, xh, B[:, 0].float())
-    h = cache["h"].mul_(decay).add_(inject)
-    y = torch.einsum("bhpn,bn->bhp", h, C[:, 0].float())
-    y = y + p["D"][:, None] * xh
+    xh = x.reshape(x.shape[0], nheads, s.head_dim)
+    y = SD.ssm_decode(cache["h"], xh, B[:, 0], C[:, 0], dt, A, p["D"],
+                      active)
     y = y.reshape(u.shape[0], 1, d_inner).to(cd)
     y = _gate(p, y, z, cfg)
     tail = hist[:, 1:, :]

@@ -55,6 +55,7 @@ from repro_torch.device import ATTN_IMPLS, check_attn_impl
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.paged_attention.ref import valid_mask
+from repro_torch.kernels.ssm_decode import ops as sd_ops
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import ssm as S
@@ -64,6 +65,10 @@ from repro_torch.models.transformer import (hybrid_moe_layers, moe_ffn,
 __all__ = ["ATTN_IMPLS", "PAGED_FAMILIES", "DecodeGraph",
            "check_paged_family", "paged_attention_decode",
            "paged_decode_step"]
+
+#: the kernel wrappers whose ``launches`` a ``DecodeGraph`` replay adds to,
+#: in the order of its ``launches``, ``flash_launches``, ``ssm_launches``
+_COUNTED = (pa_ops.paged_attention, fa_ops.flash_attention, sd_ops.ssm_decode)
 
 #: the arch families whose decode state is a KV cache that pages (with
 #: per-slot recurrent state beside it for hybrid_moe)
@@ -225,9 +230,11 @@ class DecodeGraph:
     ``replay`` copies a step's operands into the static ones (device
     copies, no host sync) and replays the graph on the current stream;
     ``logits`` and ``tokens`` are then that step's outputs, overwritten by
-    the next replay. Each replay adds the B6 and B5 launches the capture
-    recorded to ``paged_attention.launches`` and ``flash_attention.launches``,
-    which count kernel runs.
+    the next replay. Each replay adds the B6, B5 and Mamba-2 decode
+    launches the capture recorded (``launches``, ``flash_launches``,
+    ``ssm_launches``) to ``paged_attention.launches``,
+    ``flash_attention.launches`` and ``ssm_decode.launches``, which count
+    kernel runs.
 
     The server records hybrid_moe's parallel prefill the same way, one
     graph a shape (``logits`` None), all of them in one memory ``pool``:
@@ -242,19 +249,19 @@ class DecodeGraph:
         with torch.cuda.stream(stream):
             step(*operands)
         current.wait_stream(stream)
-        before = (pa_ops.paged_attention.launches,
-                  fa_ops.flash_attention.launches)
+        before = [k.launches for k in _COUNTED]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph, stream=stream, pool=pool):
             self.logits, self.tokens = step(*operands)
-        self.launches = pa_ops.paged_attention.launches - before[0]
-        self.flash_launches = fa_ops.flash_attention.launches - before[1]
-        pa_ops.paged_attention.launches, fa_ops.flash_attention.launches = \
-            before
+        (self.launches, self.flash_launches, self.ssm_launches) = (
+            k.launches - n for k, n in zip(_COUNTED, before))
+        for k, n in zip(_COUNTED, before):
+            k.launches = n
 
     def replay(self, *operands) -> None:
         for static, x in zip(self.operands, operands, strict=True):
             static.copy_(x)
         self.graph.replay()
-        pa_ops.paged_attention.launches += self.launches
-        fa_ops.flash_attention.launches += self.flash_launches
+        for k, n in zip(_COUNTED, (self.launches, self.flash_launches,
+                                   self.ssm_launches)):
+            k.launches += n

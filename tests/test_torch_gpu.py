@@ -61,7 +61,12 @@ boxes past Cout zero-filled), conv1's K = 363 at stride 4 (4-byte
 gathers; wgrad's A by cp.async, TMA refusing its 1452-byte rows) and
 stride 3, the residual bitwise and both kernels' same bits on a second
 call; the forward at conv1 and wgrad at conv1's rows at the planned
-group batch 93.
+group batch 93. The Mamba-2 decode kernel against its plain version at
+granite-4.0-h-small's serving shapes, the smoke shapes and its other row
+splits, half the slots inactive, 4 steps chained: live state within 1e-5,
+live y within rtol 1e-4 in fp32 (bf16 y at the bf16 limit), inactive
+state bitwise and y 0, the same bits on a second launch; a replayed
+Granite step adds one ``ssm_decode`` launch a Mamba layer.
 """
 import dataclasses
 import warnings
@@ -1220,3 +1225,107 @@ def test_prescaled_q_gives_the_configured_scale(card, dtype, tol):
         want = plain(qd[b:b + 1], kr, vr, n)
         torch.testing.assert_close(got[b:b + 1].float(), want, atol=tol,
                                    rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the Mamba-2 decode kernel
+# ---------------------------------------------------------------------------
+
+#: (slots, heads, P, N): granite-4.0-h-small's serving shapes, the smoke
+#: configurations' (16, 8) and (16, 16), and the kernel's other row splits
+#: (a row a lane at N = 4, ragged rows of 33 chunks, two chunks a lane)
+SSM_SHAPES = [(32, 128, 64, 128), (5, 8, 16, 8), (5, 4, 16, 16),
+              (3, 2, 5, 4), (3, 2, 7, 132), (3, 2, 64, 256)]
+
+
+def _ssm_step(card, g, S, H, P, N, dtype, active):
+    """One step's operands as ``ssm_decode`` hands them over: x, B, C
+    views of one conv output, dt 0 on the inactive rows."""
+    xbc = torch.randn(S, H * P + 2 * N, generator=g, device=card).to(dtype)
+    x = xbc[:, :H * P].reshape(S, H, P)
+    B, C = xbc[:, H * P:H * P + N], xbc[:, H * P + N:]
+    dt = torch.nn.functional.softplus(
+        torch.randn(S, H, generator=g, device=card) - 1.0)
+    dt = torch.where(active[:, None], dt, 0.0)
+    return x, B, C, dt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SSM_SHAPES)
+def test_ssm_decode_kernel_against_ref(card, shape, dtype):
+    """Half the slots inactive, 4 steps chained: after every step the live
+    rows' state within 1e-5 of the plain version's and their y within
+    rtol 1e-4 (fp32 sums in another order; bf16 y at the bf16 limit), the
+    inactive rows' state bit for bit what it was and their y 0; a second
+    launch from the same state gives the same bits; one launch a call."""
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+    S, H, P, N = shape
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    active = torch.arange(S, device=card) % 2 == 0
+    live = active.nonzero()[:, 0]
+    idle = (~active).nonzero()[:, 0]
+    h = torch.randn(S, H, P, N, generator=g, device=card)
+    want_h = h.clone()
+    A = torch.linspace(1.0, 16.0, H, device=card)
+    D = torch.rand(H, generator=g, device=card) + 0.5
+    idle_h = h[idle].clone()
+    ytol = (dict(atol=1e-5, rtol=1e-4) if dtype == torch.float32
+            else dict(atol=2e-2, rtol=2e-2))
+    for step in range(4):
+        x, B, C, dt = _ssm_step(card, g, S, H, P, N, dtype, active)
+        again = h.clone()
+        before = sd_ops.ssm_decode.launches
+        y = sd_ops.ssm_decode(h, x, B, C, dt, A, D, active)
+        assert sd_ops.ssm_decode.launches == before + 1
+        want_y = ssm_decode_ref(want_h, x, B, C, dt, A, D)
+        torch.cuda.synchronize()
+        assert y.dtype == dtype and y.shape == (S, H, P)
+        torch.testing.assert_close(h[live], want_h[live], atol=1e-5,
+                                   rtol=1e-5, msg=f"state, step {step}")
+        torch.testing.assert_close(y[live].float(), want_y[live].float(),
+                                   **ytol, msg=f"y, step {step}")
+        assert torch.equal(h[idle], idle_h), step
+        assert not y[idle].any(), step
+        assert torch.equal(sd_ops.ssm_decode(again, x, B, C, dt, A, D,
+                                             active), y), step
+        assert torch.equal(again, h), step
+
+
+def test_ssm_decode_kernel_without_a_mask_advances_every_row(card):
+    """``active=None`` (``transformer.decode_step``'s ssm arm): every row
+    live."""
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
+    from repro_torch.kernels.ssm_decode.ref import ssm_decode_ref
+    S, H, P, N = 4, 8, 64, 128
+    g = torch.Generator(device=card).manual_seed(1)
+    h = torch.randn(S, H, P, N, generator=g, device=card)
+    want_h = h.clone()
+    x, B, C, dt = _ssm_step(card, g, S, H, P, N, torch.float32,
+                            torch.ones(S, dtype=torch.bool, device=card))
+    A = torch.linspace(1.0, 16.0, H, device=card)
+    D = torch.ones(H, device=card)
+    y = sd_ops.ssm_decode(h, x, B, C, dt, A, D)
+    want_y = ssm_decode_ref(want_h, x, B, C, dt, A, D)
+    torch.testing.assert_close(h, want_h, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y, want_y, atol=1e-5, rtol=1e-4)
+
+
+def test_granite_decode_replay_counts_its_ssm_launches(card):
+    """The captured step holds one ``ssm_decode`` launch a Mamba layer, and
+    every replay adds them to ``ssm_decode.launches``: over a served run
+    the count grows by the Mamba layers times the replays."""
+    from repro_torch.kernels.ssm_decode import ops as sd_ops
+    cfg = _granite_cfg("bfloat16")
+    n_mamba = sum(k == "mamba" for k in cfg.layer_kinds)
+    reqs = _graph_reqs(cfg)
+    srv = ContinuousServer(cfg, slots=3, page_size=8, max_seq=64,
+                           attn_impl="cuda", prefill_mode="parallel",
+                           device=card)
+    srv.warmup(sorted({len(r.prompt) for r in reqs}))
+    assert srv._graph.ssm_launches == n_mamba > 0
+    before = sd_ops.ssm_decode.launches
+    srv.run(reqs)
+    replays = srv.registry.counter("serving.decode_graph_replays").value
+    assert replays > 0
+    assert sd_ops.ssm_decode.launches == before + replays * n_mamba

@@ -70,11 +70,14 @@ def test_kernel_sources_are_found_by_the_build():
     from repro_torch.kernels import _build
     assert set(_build.sources()) == {"paged_attention", "flash_attention",
                                      "fused_update", "lowering_conv",
-                                     "wgrad", "dgrad"}
-    for src in _build.sources().values():
+                                     "wgrad", "dgrad", "ssm_decode"}
+    for name, src in _build.sources().items():
         text = src.read_text()
         assert 'extern "C" int' in text and "cudaGetLastError" in text
-        assert "src/repro/kernels/" in text      # names the TPU kernel
+        if name == "ssm_decode":                 # the card's own kernel
+            assert "Replaces no TPU kernel" in text
+        else:
+            assert "src/repro/kernels/" in text  # names the TPU kernel
         lib = _build.target(src)
         assert lib.parent == _build.BUILD_DIR and lib.suffix == ".so"
     assert _build.BUILD_DIR == ROOT / "build" / "repro_torch"
